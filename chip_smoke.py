@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""
+Chip smoke test of the PyTorch/CUDA port (vsc_tpu_torch) on one GPU
+===================================================================
+
+Drives the port's streaming main path on the card and checks it:
+
+  1. card and build: CUDA present, card name + power limit, the kernels
+     built from csrc/ with nvcc;
+  2. kernel vs plain: each hand-written kernel against its plain PyTorch
+     version on the card, at the slice's 1080p shapes, under its bound, with
+     both times;
+  3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
+     SBS at super_sampling 1) on 1080p batches; launch counters reset just
+     before and read just after; a torch.profiler pass over one batch
+     (device busy/idle share, device time by kernel group); an SBS-level
+     check of the card against the CPU plain path on a small input;
+  4. the CLI: ``stream_convert.run`` on a short synthetic clip, when the
+     media engine and tqdm are present.
+
+Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
+``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
+when there is no CUDA device or the port's sources are missing.
+
+    python3 chip_smoke.py                   # all phases, as the check runs it
+    python3 chip_smoke.py --phases 1,2      # build + kernel checks only
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+BATCH = 2        # frames per dispatch in the slice phase
+BATCHES = 8      # timed dispatches, after one warm-up
+
+# (counter, route, source, replaced Pallas call)
+KERNELS = [
+    ("blur", "cuda", "vsc_tpu_torch/csrc/blur.cu",
+     "vsc_tpu/ops/blur_pallas.py:116"),
+    ("warp", "cuda", "vsc_tpu_torch/csrc/warp.cu",
+     "vsc_tpu/ops/warp_pallas.py:326"),
+    ("postprocess", "cuda", "vsc_tpu_torch/csrc/postprocess.cu",
+     "vsc_tpu/ops/postprocess_pallas.py:463"),
+    ("attention", "cuda", "vsc_tpu_torch/csrc/attention.cu",
+     "vsc_tpu/ops/attention_pallas.py:111"),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what) -> None:
+    """A failed check fails the run (kept under python -O, unlike assert)."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Mean device time of fn() over reps launches (CUDA events, after one
+    warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# kernel-name patterns -> group, first match wins
+GROUPS = [
+    ("attention kernel", r"qkv_attention_kernel"),
+    ("SBS kernels", r"::(blur|warp|prep|sweep|finish)_kernel\("),
+    ("convolutions (cuDNN)", r"fprop|dgrad|wgrad|cudnn|conv|nchwToNhwc"),
+    ("GEMMs (cuBLAS)", r"nvjet|gemm|cutlass"),
+    ("copies and memsets", r"^Memcpy|^Memset|copy_kernel|CatArray"),
+    ("other ATen kernels (elementwise, LayerNorm, GELU, gathers)",
+     r"at::native"),
+]
+
+
+def profile_device(fn):
+    """Device time of one call of fn() from torch.profiler's device events
+    only (kernels, copies, memsets; the aten:: rows that launch them are
+    host events and are left out). Busy = the union of their intervals
+    inside the host window around fn() and its synchronize; idle = the
+    rest of that window."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e for e in events if e.name == "chip_smoke_window"
+               and e.device_type == DeviceType.CPU)
+    w0, w1 = win.time_range.start, win.time_range.end
+    # the window also shows up as a device-side annotation: not a kernel
+    dev = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1),
+                  e.name) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name != "chip_smoke_window")
+    busy, end = 0.0, w0
+    for a, b, _ in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    groups = {name: 0.0 for name, _ in GROUPS}
+    groups["other"] = 0.0
+    per_kernel = {}
+    for a, b, name in dev:
+        g = next((gn for gn, pat in GROUPS if re.search(pat, name)), "other")
+        groups[g] += max(b - a, 0.0) / 1e3
+        per_kernel[name] = per_kernel.get(name, 0.0) + max(b - a, 0.0) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(window_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3,
+                events=len(dev), groups=groups, top=top)
+
+
+def smooth_depth(B, H, W, dev, seed):
+    """Scene-like nearness in [0, 1]: ramps + a disc + mild noise."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    yy = torch.linspace(0, 1, H, device=dev)[:, None]
+    xx = torch.linspace(0, 1, W, device=dev)[None, :]
+    base = 0.6 * yy + 0.2 * torch.sin(6.0 * xx)
+    disc = ((yy - 0.5) ** 2 + (xx - 0.4) ** 2 < 0.05).float() * 0.3
+    d = (base + disc)[None].expand(B, H, W)
+    d = d + 0.01 * torch.rand((B, H, W), generator=g, device=dev)
+    d = d - d.amin(dim=(1, 2), keepdim=True)
+    return (d / d.amax(dim=(1, 2), keepdim=True)).contiguous()
+
+
+def frames_1080p(B, dev, seed):
+    """Structured u8 frames: gradients, stripes, a bright block, noise."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    H, W = 1080, 1920
+    yy = torch.arange(H, device=dev)[:, None].float()
+    xx = torch.arange(W, device=dev)[None, :].float()
+    r = 128 + 100 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0)
+    gch = 255 * yy / H + 0 * xx
+    b = 255 * (1 - xx / W) + 0 * yy
+    img = torch.stack([r, gch, b], dim=-1)[None].repeat(B, 1, 1, 1)
+    for i in range(B):
+        img[i, 300 + 40 * i:600, 500 + 60 * i:900] = 230.0
+    img = img + 8 * torch.randn((B, H, W, 3), generator=g, device=dev)
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def phase_card_and_build():
+    import torch
+    from vsc_tpu_torch.ops import _cuda
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}; allow_tf32 matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+        f"{torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
+    log(f"phase 1: kernels built and loaded in {build_s:.1f} s "
+        f"(nvcc {', '.join(f'{s:.1f}' for s in _cuda.BUILD_SECONDS) or 'cached'} s)")
+    return card
+
+
+def phase_kernels(B: int):
+    """Each kernel vs its plain version at the slice's shapes."""
+    import torch
+    from vsc_tpu_torch.ops import stereo
+    from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
+                                                  qkv_attention_plain)
+    from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
+                                             gaussian_blur_planes_plain)
+    from vsc_tpu_torch.ops.inpaint import _pyramid_fill
+    from vsc_tpu_torch.ops.postprocess_cuda import (postprocess_eye,
+                                                    postprocess_eye_plain)
+    from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
+                                             forward_warp_eyes_plain)
+    dev = torch.device("cuda")
+    p = stereo.StereoParams(super_sampling=1.0)
+    s = stereo.sbs_shapes(1080, 1920, p)
+    SW = s["stretched_w"]
+    k = max(5, min(int(p.edge_softness * 6) | 1, 31))
+    res = {}
+
+    # 1. blur: depth [B, 1080, SW], k = 31, sigma 20, gamma 0.2
+    depth = smooth_depth(B, 1080, SW, dev, 1)
+    got = gaussian_blur_planes(depth, k, p.edge_softness, p.depth_gamma)
+    want = gaussian_blur_planes_plain(depth, k, p.edge_softness, p.depth_gamma)
+    err = float((got - want).abs().max())
+    res["blur"] = dict(
+        max_abs_err=err, bound="atol 1e-4 (tests/test_blur_pallas.py)",
+        ms=time_ms(lambda: gaussian_blur_planes(depth, k, p.edge_softness,
+                                                p.depth_gamma)),
+        plain_ms=time_ms(lambda: gaussian_blur_planes_plain(
+            depth, k, p.edge_softness, p.depth_gamma)))
+    check(err <= 1e-4, f"blur disagrees: {err}")
+
+    # 2. warp: rgb [B, 1080, SW, 3] integer-valued, the blurred depth
+    g = torch.Generator(dev).manual_seed(2)
+    rgb = torch.floor(torch.rand((B, 1080, SW, 3), generator=g, device=dev)
+                      * 256)
+    dn = got
+    eyes = forward_warp_eyes(rgb, dn, p.max_disparity)
+    eyes_p = forward_warp_eyes_plain(rgb, dn, p.max_disparity)
+    err = max(float((a.int() - b.int()).abs().max())
+              for a, b in zip(eyes, eyes_p))
+    res["warp"] = dict(
+        max_abs_err=err, bound="exact (u8 colors and masks)",
+        holes=float(1 - eyes[1][3].float().mean()),
+        ms=time_ms(lambda: forward_warp_eyes(rgb, dn, p.max_disparity)),
+        plain_ms=time_ms(lambda: forward_warp_eyes_plain(
+            rgb, dn, p.max_disparity), reps=2))
+    check(err == 0, f"warp disagrees: {err}")
+
+    # 3. postprocess: the right eye (most holes), its quarter-res estimate
+    eye4 = eyes[1]
+    img = torch.movedim(eye4[:3], 0, -1).float()
+    smooth_q = torch.movedim(_pyramid_fill(
+        img, eye4[3].float()[..., None], coarse_factor=4,
+        return_coarse=True), -1, 0).contiguous()
+    a = postprocess_eye(eye4, smooth_q, p.artifact_smoothing).int()
+    b = postprocess_eye_plain(eye4, smooth_q, p.artifact_smoothing).int()
+    d = (a - b).abs()
+    err, frac = float(d.max()), float((d > 0).float().mean())
+    res["postprocess"] = dict(
+        max_abs_err=err, frac_differing=frac,
+        bound="<= 1 code on < 0.1% of pixels "
+              "(tests/test_postprocess_pallas.py)",
+        ms=time_ms(lambda: postprocess_eye(eye4, smooth_q,
+                                           p.artifact_smoothing)),
+        plain_ms=time_ms(lambda: postprocess_eye_plain(
+            eye4, smooth_q, p.artifact_smoothing), reps=2))
+    check(err <= 1 and frac < 1e-3, f"postprocess disagrees: {err} {frac}")
+
+    # 4. attention: qkv [35B + B, 577, 3072] bf16, 16 heads
+    N = 36 * B
+    qkv = torch.randn((N, 577, 3072), generator=g, device=dev).to(
+        torch.bfloat16)
+    scale = 1.0 / 8.0
+    o = qkv_attention(qkv, 16, scale).float()
+    o_p = qkv_attention_plain(qkv, 16, scale).float()
+    err = float((o - o_p).abs().max())
+    mean_err = float((o - o_p).abs().mean())
+
+    def sdpa():
+        q, kk, v = (x.reshape(N, 577, 16, 64).transpose(1, 2)
+                    for x in qkv.split(1024, dim=-1))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kk, v, scale=scale)
+    res["attention"] = dict(
+        max_abs_err=err, mean_abs_err=mean_err,
+        bound="max 8e-3, mean 1e-5: bf16 output (~0.07 in size) and "
+              "bf16-rounded p that can flip with the f32 summation order",
+        ms=time_ms(lambda: qkv_attention(qkv, 16, scale)),
+        plain_ms=time_ms(lambda: qkv_attention_plain(qkv, 16, scale),
+                         reps=2),
+        sdpa_ms=time_ms(sdpa))
+    check(err <= 8e-3 and mean_err <= 1e-5,
+          f"attention disagrees: max {err}, mean {mean_err}")
+    for name, r in res.items():
+        log(f"phase 2: {name}: max_abs_err {r['max_abs_err']:.3g} "
+            f"[{r['bound']}], kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms"
+            + (f", sdpa {r['sdpa_ms']:.3f} ms" if "sdpa_ms" in r else ""))
+    return res
+
+
+def phase_slice(B: int, batches: int, card: str):
+    import torch
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    dev = torch.device("cuda")
+    params = StereoParams(super_sampling=1.0)
+    t0 = time.perf_counter()
+    depth_fn = build_depth_fn("depthpro", 1536, 1080, 1920, False,
+                              device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"phase 3: full-width DepthPro (seed 0, bf16) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames = [frames_1080p(B, dev, 10 + i) for i in range(batches)]
+    render_sbs(frames[0], depth_fn, params)              # warm-up
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    outs, batch_s = [], []
+    for f in frames:   # one synchronize per batch, as the CLI's copy-out has
+        t0 = time.perf_counter()
+        outs.append(render_sbs(f, depth_fn, params))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"phase 3: launches over {batches} batches of {B}: {launches}")
+
+    for o in outs:
+        check(tuple(o.shape) == (B, 1080, 3840, 3), o.shape)
+        check(o.dtype == torch.uint8, o.dtype)
+    check(all(v > 0 for v in launches.values()), launches)
+    depth = depth_fn(frames[0])
+    check(depth.dtype == torch.uint8 and int(depth.max()) > int(depth.min()),
+          "depth is constant")
+
+    # breakdown (outside the counted run)
+    t_depth = time_ms(lambda: depth_fn(frames[0]), reps=3)
+    t_sbs = time_ms(lambda: generate_sbs(frames[0], depth, params), reps=20)
+    fps = B * batches / sum(batch_s)
+    per_frame = sorted(1e3 * t / B for t in batch_s)
+    log(f"phase 3: depth {t_depth / B:.1f} ms/frame, SBS {t_sbs / B:.1f} "
+        f"ms/frame, end to end {fps:.3f} fps ({B * batches} frames, "
+        f"host clock; per batch {per_frame[0]:.1f} / "
+        f"{per_frame[len(per_frame) // 2]:.1f} / {per_frame[-1]:.1f} "
+        f"ms/frame min / median / max) on {card}")
+    log(f"phase 3: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prof = profile_device(lambda: render_sbs(frames[-1], depth_fn, params))
+    tot = sum(prof["groups"].values())
+    log(f"phase 3: profile of one batch: window {prof['window_ms']:.2f} ms, "
+        f"device busy {prof['busy_ms']:.2f} ms "
+        f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %, idle "
+        f"{100 - 100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
+        f"{prof['events']} device events")
+    log("phase 3: device time by group: " + "; ".join(
+        f"{g} {t:.2f} ms ({100 * t / tot:.1f} %)"
+        for g, t in sorted(prof["groups"].items(), key=lambda kv: -kv[1])))
+    log("phase 3: top kernels: " + "; ".join(
+        f"{t:.2f} ms {n[:70]}" for n, t in prof["top"]))
+
+    # the SBS composition on the card vs the CPU plain path, small input
+    g = torch.Generator().manual_seed(3)
+    rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
+    dsm = (smooth_depth(2, 72, 128, torch.device("cpu"), 4) * 255).to(
+        torch.uint8)
+    small = StereoParams(max_disparity=50.0 * 128 / 1920,
+                         convergence=-10.0 * 128 / 1920, super_sampling=1.0)
+    ref = generate_sbs(rgb, dsm, small).int()
+    got = generate_sbs(rgb.to(dev), dsm.to(dev), small).cpu().int()
+    diff = (got - ref).abs().float()
+    mean, over1, top = (float(diff.mean()), float((diff > 1).float().mean()),
+                        int(diff.max()))
+    log(f"phase 3: small SBS card vs CPU plain: mean diff {mean:.4f}, "
+        f">1 code {over1:.5f}, max {top}")
+    check(mean < 0.05 and over1 < 0.005 and top <= 16,
+          "SBS on the card disagrees with the CPU plain path")
+    return launches
+
+
+def phase_cli():
+    missing = []
+    try:
+        import tqdm  # noqa: F401
+    except ImportError:
+        missing.append("tqdm")
+    from vsc_tpu.native import vscmedia_path
+    engine = vscmedia_path()
+    try:   # a binary whose libav libraries are absent cannot even start
+        usable = engine is not None and subprocess.run(
+            [str(engine)], capture_output=True, timeout=60).returncode != 127
+    except OSError:
+        usable = False
+    if not usable:
+        missing.append("the vscmedia media engine (libav)")
+    if missing:
+        log(f"phase 4: not run: missing {' and '.join(missing)}")
+        return
+    from vsc_tpu.config import (create_default_config, get_path, load_config,
+                                save_config)
+    from vsc_tpu.io.media import make_test_video
+    from vsc_tpu.io.probe import probe_video
+    from vsc_tpu_torch.pipeline import stream_convert
+    with tempfile.TemporaryDirectory() as tmp:
+        video = Path(tmp) / "clip.mkv"
+        make_test_video(video, width=320, height=180, frames=12,
+                        framerate="24/1", with_audio=True)
+        wf = Path(tmp) / "workflow"
+        for sub in ("frames", "depth_maps", "sbs", "chunks"):
+            (wf / sub).mkdir(parents=True)
+        save_config(wf, create_default_config(video))
+        config = load_config(wf)
+        config["stereo"]["super_sampling"] = 1.0
+        config["encoding"] = {"crf": 30, "preset": "ultrafast"}
+        save_config(wf, config)
+        t0 = time.perf_counter()
+        ok = stream_convert.run(wf, config, batch_size=2, chunk_size=8,
+                                model_name="depthpro", input_size=1536)
+        check(ok, "stream_convert.run failed")
+        info = probe_video(get_path(wf, config, "output_video"))
+        check(info["width"] == 640 and info["height"] == 180, info)
+        log(f"phase 4: stream_convert.run on a 12-frame 320x180 clip: "
+            f"{info['width']}x{info['height']} {info['vcodec']}, "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--phases", default="1,2,3,4")
+    args = ap.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",")}
+
+    if not (REPO / "vsc_tpu_torch" / "csrc").is_dir():
+        print("ERROR: vsc_tpu_torch sources not found beside chip_smoke.py",
+              file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("ERROR: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ERROR: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = phase_card_and_build()
+    kern = phase_kernels(BATCH) if 2 in phases else {}
+    launches = phase_slice(BATCH, BATCHES, card) if 3 in phases else {}
+    if 4 in phases:
+        phase_cli()
+    check("jax" not in sys.modules, "the port pulled in jax")
+
+    line = {"kernels": [
+        {"name": name, "route": route, "source": src, "replaces": rep,
+         "launches": launches.get(name, 0),
+         "max_abs_err": kern.get(name, {}).get("max_abs_err"),
+         "ms": kern.get(name, {}).get("ms"),
+         "plain_ms": kern.get(name, {}).get("plain_ms")}
+        for name, route, src, rep in KERNELS]}
+    print(json.dumps(line), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,6 +29,11 @@ import pytest  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
+
+
 def pytest_sessionstart(session):
     assert jax.devices()[0].platform == "cpu", \
         "tests must not run on the real TPU"

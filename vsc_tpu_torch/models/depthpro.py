@@ -1,0 +1,256 @@
+"""
+DepthPro monocular depth estimator (PyTorch)
+============================================
+
+Port of ``vsc_tpu/models/depthpro.py`` without the FOV head (the pipeline
+min-max normalizes the depth, so the FOV branch cannot change its output;
+``vsc_tpu/pipeline/depth_map_generator.py:58-63``). Modules carry the key
+names of Apple's ``depth_pro.pt`` as ``vsc_tpu/models/convert.py``'s
+``_apple_mapping`` reads them:
+
+  encoder.patch_encoder / encoder.image_encoder   two ViT-L/16 (models/vit.py)
+  encoder.upsample_latent0|latent1|0|1|2           Sequential(1x1 conv,
+                                                   ConvTranspose 2x2/s2 ...)
+  encoder.upsample_lowres, encoder.fuse_lowres
+  decoder.convs.{1..4}  (convs.0 is the identity)
+  decoder.fusions.{i}.resnet1|resnet2 (Sequential(ReLU, Conv, ReLU, Conv)),
+                      .deconv, .out_conv
+  head.{0,1,2,4}
+
+The coarsest fusion block has no skip input, so (as in the JAX parameter
+tree) it has no ``resnet1``. Tensors are NCHW inside; ``DepthPro.forward``
+takes the JAX package's [B, S, S, 3] layout. Convolutions are
+``F.conv2d`` / ``F.conv_transpose2d`` (the JAX package leaves them to XLA).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from vsc_tpu_torch.models.vit import ViT, ViTConfig
+
+__all__ = ["DepthProConfig", "DepthPro"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthProConfig:
+    img_size: int = 1536
+    tile_size: int = 384
+    encoder: ViTConfig = ViTConfig()
+    hook_block_ids: tuple[int, int] = (5, 11)
+    decoder_features: int = 256
+    dims_encoder: tuple[int, int, int, int] = (256, 512, 1024, 1024)
+
+    def __post_init__(self):
+        if self.img_size != 4 * self.tile_size:
+            raise ValueError(f"img_size ({self.img_size}) must be 4 * "
+                             f"tile_size ({self.tile_size})")
+        grid = self.tile_size // self.encoder.patch_size
+        if grid * self.encoder.patch_size != self.tile_size or grid % 8:
+            raise ValueError(f"tile_size/patch_size token grid ({grid}) "
+                             "must be a multiple of 8")
+
+    @property
+    def grid(self) -> int:
+        return self.tile_size // self.encoder.patch_size
+
+
+def _downscale2tap(x, factor: int):
+    """F.interpolate(scale_factor=1/f, bilinear, align_corners=False) for
+    even integer f: an exact 2-tap average with stride f (NCHW)."""
+    f = factor
+    x = (x[:, :, f // 2 - 1::f] + x[:, :, f // 2::f]) * 0.5
+    return (x[:, :, :, f // 2 - 1::f] + x[:, :, :, f // 2::f]) * 0.5
+
+
+def _tile(images, tile: int, stride: int):
+    """[B, C, S, S] -> overlapping tiles [B*n*n, C, tile, tile] (b, i, j)."""
+    B, C, S, _ = images.shape
+    n = (S - tile) // stride + 1
+    tiles = [images[:, :, i * stride:i * stride + tile,
+                    j * stride:j * stride + tile]
+             for i in range(n) for j in range(n)]
+    return torch.stack(tiles, dim=1).reshape(B * n * n, C, tile, tile)
+
+
+def _mosaic(feats, B: int, n: int, trim: int):
+    """Inverse of _tile in feature space: [B*n*n, C, t, t] -> [B, C, G, G],
+    trimming ``trim`` overlap rows/cols from interior tile edges."""
+    t = feats.shape[-1]
+    feats = feats.reshape(B, n, n, feats.shape[1], t, t)
+    rows = []
+    for i in range(n):
+        y0, y1 = (0 if i == 0 else trim), (t if i == n - 1 else t - trim)
+        cols = []
+        for j in range(n):
+            x0, x1 = (0 if j == 0 else trim), (t if j == n - 1 else t - trim)
+            cols.append(feats[:, i, j, :, y0:y1, x0:x1])
+        rows.append(torch.cat(cols, dim=3))
+    return torch.cat(rows, dim=2)
+
+
+def _tokens_to_map(tokens, grid: int):
+    """[N, 1+T, D] -> [N, D, grid, grid] (cls dropped)."""
+    N, _, D = tokens.shape
+    return tokens[:, 1:, :].reshape(N, grid, grid, D).permute(0, 3, 1, 2)
+
+
+def _conv(cin: int, cout: int, k: int, bias: bool = True):
+    return nn.Conv2d(cin, cout, k, stride=1, padding=k // 2, bias=bias)
+
+
+def _convT(cin: int, cout: int, bias: bool = False):
+    return nn.ConvTranspose2d(cin, cout, 2, stride=2, padding=0, bias=bias)
+
+
+def _proj_upsample(cin: int, dim_out: int, n_up: int, dim_int=None):
+    """Apple's _create_project_upsample_block: 1x1 projection then n_up
+    bias-free ConvTranspose 2x2/s2."""
+    dim_int = dim_int if dim_int is not None else dim_out
+    layers = [_conv(cin, dim_int, 1, bias=False)]
+    for i in range(n_up):
+        layers.append(_convT(dim_int if i == 0 else dim_out, dim_out))
+    return nn.Sequential(*layers)
+
+
+def _apply_proj_upsample(seq, x, mosaic=None):
+    """The 1x1 projection commutes with the tile mosaic, so the mosaic runs
+    on the projected (narrower) features, as in the JAX module."""
+    x = seq[0](x)
+    if mosaic is not None:
+        x = mosaic(x)
+    for layer in list(seq)[1:]:
+        x = layer(x)
+    return x
+
+
+class DepthProEncoder(nn.Module):
+    def __init__(self, cfg: DepthProConfig):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.encoder.embed_dim
+        dims, dd = cfg.dims_encoder, cfg.decoder_features
+        self.patch_encoder = ViT(cfg.encoder, cfg.hook_block_ids)
+        self.image_encoder = ViT(cfg.encoder)
+        self.upsample_latent0 = _proj_upsample(D, dd, 3, dim_int=dims[0])
+        self.upsample_latent1 = _proj_upsample(D, dims[0], 2)
+        self.upsample0 = _proj_upsample(D, dims[1], 1)
+        self.upsample1 = _proj_upsample(D, dims[2], 1)
+        self.upsample2 = _proj_upsample(D, dims[3], 1)
+        self.upsample_lowres = _convT(D, dims[3], bias=True)
+        self.fuse_lowres = _conv(2 * dims[3], dims[3], 1)
+
+    def forward(self, x):
+        """x: [B, 3, S, S] -> five NCHW maps, finest first."""
+        cfg = self.cfg
+        B, _, S, _ = x.shape
+        tile, grid = cfg.tile_size, cfg.grid
+        x_half = _downscale2tap(x, 2)
+        x_quar = _downscale2tap(x, 4)
+        n_f = (S - tile) // (3 * tile // 4) + 1
+        n_m = (S // 2 - tile) // (tile // 2) + 1
+        all_tiles = torch.cat([_tile(x, tile, 3 * tile // 4),
+                               _tile(x_half, tile, tile // 2), x_quar])
+        nf2, nm2 = B * n_f * n_f, B * n_m * n_m
+        tokens, hooks = self.patch_encoder(all_tiles, hook_batch=nf2)
+        trim_f = (grid - 3 * grid // 4) // 2
+        trim_m = (grid - grid // 2) // 2
+
+        def fine_maps(tok):
+            return _tokens_to_map(tok[:nf2], grid)
+
+        def mosaic_fine(m):
+            return _mosaic(m, B, n_f, trim_f)
+
+        def mosaic_mid(m):
+            return _mosaic(m, B, n_m, trim_m)
+
+        h0, h1 = cfg.hook_block_ids
+        latent0 = _apply_proj_upsample(self.upsample_latent0,
+                                       fine_maps(hooks[h0]), mosaic_fine)
+        latent1 = _apply_proj_upsample(self.upsample_latent1,
+                                       fine_maps(hooks[h1]), mosaic_fine)
+        fine = _apply_proj_upsample(self.upsample0, fine_maps(tokens),
+                                    mosaic_fine)
+        mid = _apply_proj_upsample(
+            self.upsample1, _tokens_to_map(tokens[nf2:nf2 + nm2], grid),
+            mosaic_mid)
+        coarse = _apply_proj_upsample(
+            self.upsample2, _tokens_to_map(tokens[nf2 + nm2:], grid))
+        img_tokens, _ = self.image_encoder(x_quar)
+        glob = self.upsample_lowres(_tokens_to_map(img_tokens, grid))
+        glob = self.fuse_lowres(torch.cat([coarse, glob], dim=1))
+        return [latent0, latent1, fine, mid, glob]
+
+
+class PreActResidual(nn.Sequential):
+    """x + conv(relu(conv(relu(x)))); Sequential indices 1 and 3 are the
+    convs, as in Apple's checkpoint."""
+
+    def __init__(self, dim: int):
+        super().__init__(nn.ReLU(), _conv(dim, dim, 3), nn.ReLU(),
+                         _conv(dim, dim, 3))
+
+    def forward(self, x):
+        return x + super().forward(x)
+
+
+class FeatureFusion(nn.Module):
+    def __init__(self, dim: int, deconv: bool, skip: bool):
+        super().__init__()
+        if skip:
+            self.resnet1 = PreActResidual(dim)
+        self.resnet2 = PreActResidual(dim)
+        if deconv:
+            self.deconv = _convT(dim, dim)
+        self.out_conv = _conv(dim, dim, 1)
+
+    def forward(self, x, skip=None):
+        if skip is not None:
+            x = x + self.resnet1(skip)
+        x = self.resnet2(x)
+        if hasattr(self, "deconv"):
+            x = self.deconv(x)
+        return self.out_conv(x)
+
+
+class MultiresConvDecoder(nn.Module):
+    def __init__(self, cfg: DepthProConfig):
+        super().__init__()
+        dd, dims = cfg.decoder_features, cfg.dims_encoder
+        self.convs = nn.ModuleList(
+            [nn.Identity()] + [_conv(c, dd, 3, bias=False) for c in dims])
+        self.fusions = nn.ModuleList(
+            FeatureFusion(dd, deconv=i != 0, skip=i != 4) for i in range(5))
+
+    def forward(self, encodings):
+        projected = [conv(e) for conv, e in zip(self.convs, encodings)]
+        x = self.fusions[4](projected[4])
+        for i in (3, 2, 1, 0):
+            x = self.fusions[i](x, projected[i])
+        return x
+
+
+class DepthPro(nn.Module):
+    def __init__(self, cfg: DepthProConfig = DepthProConfig()):
+        super().__init__()
+        self.cfg = cfg
+        dd = cfg.decoder_features
+        self.encoder = DepthProEncoder(cfg)
+        self.decoder = MultiresConvDecoder(cfg)
+        self.head = nn.Sequential(
+            _conv(dd, dd // 2, 3), _convT(dd // 2, dd // 2, bias=True),
+            _conv(dd // 2, 32, 3), nn.ReLU(), _conv(32, 1, 1), nn.ReLU())
+
+    def forward(self, images):
+        """images: [B, S, S, 3] in [-1, 1] -> {"canonical_inverse_depth":
+        [B, S', S'] float32, "inverse_depth": the same (no FOV head)}."""
+        dt = self.head[0].weight.dtype
+        x = images.permute(0, 3, 1, 2).to(dt)
+        feats = self.decoder(self.encoder(x))
+        canonical = self.head(feats)[:, 0].float()
+        return {"canonical_inverse_depth": canonical,
+                "inverse_depth": canonical}

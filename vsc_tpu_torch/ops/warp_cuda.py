@@ -1,0 +1,54 @@
+"""
+Forward stereo warp — CUDA kernel wrapper and plain version
+===========================================================
+
+Replaces ``vsc_tpu/ops/warp_pallas.py:_warp_planes`` (compat entry
+``forward_warp_stereo_pallas``): both eyes of the gather warp, emitted as
+the [4, B, H, W] uint8 (r, g, b, valid) stacks the postprocess consumes.
+Colors are floor(clip(., 0, 255)) of the winning source pixel; the winner
+rule is ops/warp.py's, bit for bit. Kernel source: ``csrc/warp.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vsc_tpu_torch.ops import _cuda
+
+__all__ = ["forward_warp_eyes", "forward_warp_eyes_plain"]
+
+
+def _stack_eye(img, mask):
+    q = torch.floor(torch.clamp(img, 0.0, 255.0))
+    return torch.cat([torch.movedim(q, -1, 0), mask[None]],
+                     dim=0).to(torch.uint8)
+
+
+def forward_warp_eyes_plain(image, depth, max_disparity: float):
+    """image [B, H, W, 3] float32, depth [B, H, W] float32 in [0, 1] ->
+    (eye_l, eye_r), each [4, B, H, W] uint8."""
+    from vsc_tpu_torch.ops.warp import forward_warp_stereo
+    left, lm, right, rm = forward_warp_stereo(image, depth, max_disparity)
+    return _stack_eye(left, lm), _stack_eye(right, rm)
+
+
+def forward_warp_eyes(image, depth, max_disparity: float):
+    """CPU tensors: the plain version; CUDA tensors: the kernel."""
+    if image.device.type == "cpu" and depth.device.type == "cpu":
+        return forward_warp_eyes_plain(image, depth, max_disparity)
+    _cuda.require_cuda("forward_warp", image, depth)
+    B, H, W, C = image.shape
+    if (C != 3 or tuple(depth.shape) != (B, H, W)
+            or image.dtype != torch.float32 or depth.dtype != torch.float32):
+        raise ValueError(f"forward_warp: need image [B,H,W,3] and depth "
+                         f"[B,H,W] float32, got {tuple(image.shape)} "
+                         f"{image.dtype}, {tuple(depth.shape)} {depth.dtype}")
+    eye_l = torch.empty((4, B, H, W), dtype=torch.uint8, device=image.device)
+    eye_r = torch.empty_like(eye_l)
+    code = _cuda.library().vsc_warp(
+        depth.data_ptr(), image.data_ptr(), eye_l.data_ptr(),
+        eye_r.data_ptr(), B * H, W, float(max_disparity),
+        _cuda.stream_ptr(image.device))
+    _cuda.check(code, "vsc_warp")
+    _cuda.LAUNCHES["warp"] += 1
+    return eye_l, eye_r
