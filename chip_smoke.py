@@ -8,13 +8,19 @@ Drives the port's streaming main path on the card and checks it:
   1. card and build: CUDA present, card name + power limit, the kernels
      built from csrc/ with nvcc;
   2. kernel vs plain: each hand-written kernel against its plain PyTorch
-     version on the card, at the slice's 1080p shapes, under its bound, with
-     both times;
+     version on the card, at the slice's 1080p shapes (super_sampling 1 for
+     blur, warp, postprocess and attention; super_sampling 3 for every SBS
+     kernel: upsample, blur, planar-u8 warp, pools, pyramid, postprocess on
+     the eye pair, finish), under its bound, with both times; then the
+     super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
+     that size;
   3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
-     SBS at super_sampling 1) on 1080p batches; launch counters reset just
-     before and read just after; a torch.profiler pass over one batch
-     (device busy/idle share, device time by kernel group); an SBS-level
-     check of the card against the CPU plain path on a small input;
+     SBS) on 1080p batches at ``StereoParams()`` defaults (super_sampling 3,
+     the planar-u8 branch), then a shorter run at super_sampling 1 (the
+     compat branch); launch counters reset just before each run and read
+     just after; a torch.profiler pass over one default batch (device
+     busy/idle share, device time by kernel group); an SBS-level check of
+     the card against the CPU plain path on a small input at 1 and 3;
   4. the CLI: ``stream_convert.run`` on a short synthetic clip, when the
      media engine and tqdm are present.
 
@@ -38,7 +44,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 BATCH = 2        # frames per dispatch in the slice phase
-BATCHES = 8      # timed dispatches, after one warm-up
+BATCHES = 8      # timed dispatches at the defaults, after one warm-up
+BATCHES_SS1 = 2  # dispatches of the shorter super_sampling 1 run
 
 # (counter, route, source, replaced Pallas call)
 KERNELS = [
@@ -50,6 +57,14 @@ KERNELS = [
      "vsc_tpu/ops/postprocess_pallas.py:463"),
     ("attention", "cuda", "vsc_tpu_torch/csrc/attention.cu",
      "vsc_tpu/ops/attention_pallas.py:111"),
+    ("upsample", "cuda", "vsc_tpu_torch/csrc/upsample.cu",
+     "vsc_tpu/ops/upsample_pallas.py:181"),
+    ("pool", "cuda", "vsc_tpu_torch/csrc/pool.cu",
+     "vsc_tpu/ops/pool_pallas.py:91, vsc_tpu/ops/pool_pallas.py:131"),
+    ("pyramid", "cuda", "vsc_tpu_torch/csrc/pyramid.cu",
+     "vsc_tpu/ops/pyramid_pallas.py:105"),
+    ("finish", "cuda", "vsc_tpu_torch/csrc/finish.cu",
+     "vsc_tpu/ops/finish_pallas.py:195"),
 ]
 
 
@@ -82,7 +97,10 @@ def time_ms(fn, reps: int = 5) -> float:
 # kernel-name patterns -> group, first match wins
 GROUPS = [
     ("attention kernel", r"qkv_attention_kernel"),
-    ("SBS kernels", r"::(blur|warp|prep|sweep|finish)_kernel\("),
+    ("SBS kernels (blur, warp, postprocess)",
+     r"::(blur|warp|prep|sweep|finish)_kernel[<(]"),
+    ("super-sampling kernels (upsample, pool, pyramid, finish)",
+     r"::(upsample|pool_eye4|pool2|pyramid|sharpen_downscale)_kernel[<(]"),
     ("convolutions (cuDNN)", r"fprop|dgrad|wgrad|cudnn|conv|nchwToNhwc"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|cutlass"),
     ("copies and memsets", r"^Memcpy|^Memset|copy_kernel|CatArray"),
@@ -146,11 +164,10 @@ def smooth_depth(B, H, W, dev, seed):
     return (d / d.amax(dim=(1, 2), keepdim=True)).contiguous()
 
 
-def frames_1080p(B, dev, seed):
+def frames_u8(B, dev, seed, H=1080, W=1920):
     """Structured u8 frames: gradients, stripes, a bright block, noise."""
     import torch
     g = torch.Generator(dev).manual_seed(seed)
-    H, W = 1080, 1920
     yy = torch.arange(H, device=dev)[:, None].float()
     xx = torch.arange(W, device=dev)[None, :].float()
     r = 128 + 100 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0)
@@ -286,24 +303,161 @@ def phase_kernels(B: int):
     return res
 
 
-def phase_slice(B: int, batches: int, card: str):
+def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
+    """Every SBS kernel of the super_sampling 3 branch (upsample, blur,
+    planar-u8 warp, pools, pyramid, postprocess on the pair, finish) vs its
+    plain version, at the shapes of H x W frames (1080p and 2160 x 3840 as
+    the check runs it), fed by the chain it sits in (each stage's kernel
+    output is the next stage's input)."""
+    import torch
+    from vsc_tpu_torch.ops import stereo
+    from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
+                                             gaussian_blur_planes_plain)
+    from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale_planar,
+                                               sharpen_downscale_plain)
+    from vsc_tpu_torch.ops.inpaint import PYR_KMAX, _avgpool2_hw, _edge_even
+    from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
+                                             avgpool2_plain,
+                                             avgpool_eye4_plain)
+    from vsc_tpu_torch.ops.postprocess_cuda import (postprocess_eye,
+                                                    postprocess_eye_plain)
+    from vsc_tpu_torch.ops.pyramid_cuda import (pyramid_fill_below,
+                                                pyramid_fill_below_plain)
+    from vsc_tpu_torch.ops.resize import resize
+    from vsc_tpu_torch.ops.upsample_cuda import (upsample_bilinear_int,
+                                                 upsample_bilinear_int_plain)
+    from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes_planar,
+                                             forward_warp_eyes_planar_plain)
+    dev = torch.device("cuda")
+    p = stereo.StereoParams()
+    s = stereo.sbs_shapes(H, W, p)
+    SW, UH, UW, f = s["stretched_w"], s["up_h"], s["up_w"], 3
+    lo, ro, crop_w = stereo._crop_offsets(H, W, p)
+    res = {}
+
+    def exact(name, got, want, bound="exact", **extra):
+        err = float((got.float() - want.float()).abs().max())
+        res[name] = dict(max_abs_err=err, bound=bound, **extra)
+        return err
+
+    # upsample: stretched RGB planes [3B, 1080, SW] (u8 values) -> u8, and
+    # the normalized depth [B, 1080, SW] -> f32
+    rgb = frames_u8(B, dev, 5, H, W).float()
+    rgb_st = stereo._quantize_like(resize(rgb, H, SW, "lanczos4",
+                                          channel_last=True), 255.0)
+    x_cf = torch.movedim(rgb_st, -1, 1).reshape(-1, H, SW).contiguous()
+    depth = smooth_depth(B, H, SW, dev, 1)
+    up = upsample_bilinear_int(x_cf, f, quantize_u8=True)
+    e_u8 = exact("upsample_u8", up, upsample_bilinear_int_plain(x_cf, f, True),
+                 ms=time_ms(lambda: upsample_bilinear_int(x_cf, f, True)),
+                 plain_ms=time_ms(lambda: upsample_bilinear_int_plain(
+                     x_cf, f, True), reps=2))
+    up_d = upsample_bilinear_int(depth, f)
+    e_f32 = exact("upsample_f32", up_d, upsample_bilinear_int_plain(depth, f),
+                  ms=time_ms(lambda: upsample_bilinear_int(depth, f)),
+                  plain_ms=time_ms(lambda: upsample_bilinear_int_plain(
+                      depth, f), reps=2))
+    check(e_u8 == 0 and e_f32 == 0, f"upsample disagrees: {e_u8} {e_f32}")
+
+    # the blur of the up-res depth, then the planar-u8 warp on it
+    k = max(5, min(int(p.edge_softness * 6) | 1, 31))
+    blur_args = (up_d, k, p.edge_softness, p.depth_gamma)
+    dn = gaussian_blur_planes(*blur_args)
+    err = exact("blur", dn, gaussian_blur_planes_plain(*blur_args),
+                bound="atol 1e-4 (tests/test_blur_pallas.py)",
+                ms=time_ms(lambda: gaussian_blur_planes(*blur_args)),
+                plain_ms=time_ms(lambda: gaussian_blur_planes_plain(
+                    *blur_args), reps=2))
+    check(err <= 1e-4, f"blur disagrees: {err}")
+    img_cf = up.reshape(B, 3, UH, UW)
+    eyes = forward_warp_eyes_planar(img_cf, dn, p.max_disparity)
+    eyes_p = forward_warp_eyes_planar_plain(img_cf, dn, p.max_disparity)
+    err = max(exact("warp_planar_u8", a, b) for a, b in zip(eyes, eyes_p))
+    res["warp_planar_u8"].update(
+        max_abs_err=err, holes=float(1 - eyes[1][3].float().mean()),
+        ms=time_ms(lambda: forward_warp_eyes_planar(img_cf, dn,
+                                                    p.max_disparity)),
+        plain_ms=time_ms(lambda: forward_warp_eyes_planar_plain(
+            img_cf, dn, p.max_disparity), reps=2))
+    check(err == 0, f"planar-u8 warp disagrees: {err}")
+    del eyes_p
+    pair = torch.cat(eyes, dim=1)
+    del eyes
+
+    # pools: eye4 f = 2 (6090 % 4 != 0), edge-even, f32 2x2; an odd W'
+    # (2160 x 3840: 11847) takes the torch glue, as the JAX package does
+    if UH % 2 == 0 and UW % 2 == 0:
+        x2 = avgpool2_eye4(pair)
+        e1 = exact("pool_eye4", x2, avgpool_eye4_plain(pair, 2),
+                   ms=time_ms(lambda: avgpool2_eye4(pair)),
+                   plain_ms=time_ms(lambda: avgpool_eye4_plain(pair, 2),
+                                    reps=2))
+        xe = _edge_even(x2)
+        K, N, h, w = xe.shape
+        planes = xe.reshape(K * N, h, w)
+        x4 = avgpool2(planes)
+        e2 = exact("pool_f32", x4, avgpool2_plain(planes),
+                   ms=time_ms(lambda: avgpool2(planes)),
+                   plain_ms=time_ms(lambda: avgpool2_plain(planes), reps=2))
+        check(e1 == 0 and e2 == 0, f"pools disagree: {e1} {e2}")
+        q = x4.reshape(K, N, h // 2, w // 2)
+    else:
+        q = avgpool_eye4_plain(pair, 4)
+
+    # pyramid below the handoff: glue levels down from the quarter
+    while max(q.shape[-2:]) > PYR_KMAX:
+        q = _avgpool2_hw(q)
+    q = q.contiguous()
+    err = exact("pyramid", pyramid_fill_below(q), pyramid_fill_below_plain(q),
+                bound="exact (bit-identical levels)",
+                ms=time_ms(lambda: pyramid_fill_below(q)),
+                plain_ms=time_ms(lambda: pyramid_fill_below_plain(q), reps=2))
+    check(err == 0, f"pyramid disagrees: {err}")
+
+    # finish on the postprocessed pair, each eye at its own offset
+    smooth_q = stereo._pyramid_fill_planar_coarse(pair)
+    pp_args = (pair, smooth_q, p.artifact_smoothing)
+    out = postprocess_eye(*pp_args)
+    d = (out.int() - postprocess_eye_plain(*pp_args).int()).abs()
+    err, frac = float(d.max()), float((d > 0).float().mean())
+    del d
+    res["postprocess"] = dict(
+        max_abs_err=err, frac_differing=frac,
+        bound="<= 1 code on < 0.1% of pixels",
+        ms=time_ms(lambda: postprocess_eye(*pp_args)),
+        plain_ms=time_ms(lambda: postprocess_eye_plain(*pp_args), reps=2))
+    check(err <= 1 and frac < 1e-3, f"postprocess disagrees: {err} {frac}")
+    del pair, pp_args
+    args = (out, f, float(p.sharpen), H, W, crop_w, (lo, ro))
+    got = sharpen_downscale_planar(*args)
+    want = sharpen_downscale_plain(*args)
+    d = (got.int() - want.int()).abs()
+    err = exact("finish", got, want, frac_differing=float(
+                    (d > 0).float().mean()),
+                ms=time_ms(lambda: sharpen_downscale_planar(*args)),
+                plain_ms=time_ms(lambda: sharpen_downscale_plain(*args),
+                                 reps=2))
+    check(err == 0, f"finish disagrees: {err}")
+    log(f"phase 2: {H}x{W} super_sampling 3 shapes: upsample "
+        f"{tuple(x_cf.shape)} and {tuple(depth.shape)} x{f}, pair "
+        f"{tuple(out.shape[1:])}, pyramid {tuple(q.shape)}, finish crop "
+        f"{crop_w} at ({lo}, {ro})")
+    for name, r in res.items():
+        log(f"phase 2: {name} ({H}x{W}, super_sampling 3): max_abs_err "
+            f"{r['max_abs_err']:.3g}"
+            + (f" on {r['frac_differing']:.2g} of pixels"
+               if "frac_differing" in r else "")
+            + f" [{r['bound']}], kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms")
+    return res
+
+
+def drive(frames, depth_fn, params):
+    """One counted run of the main path: launch counters set to 0 just
+    before, read just after. Returns (outputs, seconds per batch, counts)."""
     import torch
     from vsc_tpu_torch.ops import _cuda
-    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
-    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
     from vsc_tpu_torch.pipeline.stream_convert import render_sbs
-    dev = torch.device("cuda")
-    params = StereoParams(super_sampling=1.0)
-    t0 = time.perf_counter()
-    depth_fn = build_depth_fn("depthpro", 1536, 1080, 1920, False,
-                              device=dev, seed=0)
-    torch.cuda.synchronize()
-    log(f"phase 3: full-width DepthPro (seed 0, bf16) built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    frames = [frames_1080p(B, dev, 10 + i) for i in range(batches)]
-    render_sbs(frames[0], depth_fn, params)              # warm-up
-    torch.cuda.synchronize()
-
     _cuda.reset_launches()
     outs, batch_s = [], []
     for f in frames:   # one synchronize per batch, as the CLI's copy-out has
@@ -311,33 +465,137 @@ def phase_slice(B: int, batches: int, card: str):
         outs.append(render_sbs(f, depth_fn, params))
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
-    launches = dict(_cuda.LAUNCHES)
-    log(f"phase 3: launches over {batches} batches of {B}: {launches}")
+    return outs, batch_s, dict(_cuda.LAUNCHES)
 
+
+def small_sbs_check(params, dev):
+    """The SBS composition on the card vs the CPU plain path, 2 x 72 x 128,
+    disparity and convergence scaled from 1920 to 128 columns."""
+    import torch
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    g = torch.Generator().manual_seed(3)
+    rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
+    dsm = (smooth_depth(2, 72, 128, torch.device("cpu"), 4) * 255).to(
+        torch.uint8)
+    small = StereoParams(max_disparity=params.max_disparity * 128 / 1920,
+                         convergence=params.convergence * 128 / 1920,
+                         super_sampling=params.super_sampling)
+    ref = generate_sbs(rgb, dsm, small).int()
+    got = generate_sbs(rgb.to(dev), dsm.to(dev), small).cpu().int()
+    diff = (got - ref).abs().float()
+    mean, over1, top = (float(diff.mean()), float((diff > 1).float().mean()),
+                        int(diff.max()))
+    log(f"phase 3: small SBS card vs CPU plain at super_sampling "
+        f"{params.super_sampling:g}: mean diff {mean:.4f}, >1 code "
+        f"{over1:.5f}, max {top}")
+    check(mean < 0.05 and over1 < 0.005 and top <= 16,
+          "SBS on the card disagrees with the CPU plain path")
+
+
+def phase_4k():
+    """The super_sampling 3 branch at 2160 x 3840, batch 1: each new kernel
+    against its plain version at those shapes (phase_ss_kernels), then
+    generate_sbs on the card: output shape, type and a non-constant
+    picture."""
+    import torch
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    dev = torch.device("cuda")
+    phase_ss_kernels(1, 2160, 3840)
+    rgb = frames_u8(1, dev, 7, 2160, 3840)
+    depth = (smooth_depth(1, 2160, 3840, dev, 8) * 255).to(torch.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    t_sbs = time_ms(lambda: generate_sbs(rgb, depth, StereoParams()), reps=2)
+    out = generate_sbs(rgb, depth, StereoParams())
+    check(tuple(out.shape) == (1, 2160, 7680, 3) and out.dtype == torch.uint8,
+          f"4K SBS output {tuple(out.shape)} {out.dtype}")
+    check(float(out.float().std()) > 1.0, "4K SBS output is flat")
+    log(f"phase 2: 2160x3840 SBS at the defaults: {tuple(out.shape)} u8, "
+        f"{t_sbs:.1f} ms/frame, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def merge_kernel_results(ss1: dict, ss3: dict) -> dict:
+    """One row per launch counter for the kernels line: times at the main
+    path's (super_sampling 3) shapes where the kernel has a check there
+    (super_sampling 1 times kept beside them), the largest error over every
+    check of the kernel."""
+    rows = dict(ss1)
+    parts = {"upsample": ("upsample_u8", "upsample_f32"),
+             "pool": ("pool_eye4", "pool_f32"), "pyramid": ("pyramid",),
+             "finish": ("finish",), "warp": ("warp_planar_u8",),
+             "blur": ("blur",), "postprocess": ("postprocess",)}
+    for name, keys in parts.items():
+        row = {"max_abs_err": max([ss3[k]["max_abs_err"] for k in keys]
+                                  + ([ss1[name]["max_abs_err"]]
+                                     if name in ss1 else [])),
+               "ms": sum(ss3[k]["ms"] for k in keys),
+               "plain_ms": sum(ss3[k]["plain_ms"] for k in keys)}
+        if name in ss1:
+            row.update(ss1_ms=ss1[name]["ms"], ss1_plain_ms=ss1[name]["plain_ms"])
+        rows[name] = row
+    return rows
+
+
+def phase_slice(B: int, batches: int, card: str):
+    import torch
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    dev = torch.device("cuda")
+    params = StereoParams()                       # super_sampling 3
+    ss1 = StereoParams(super_sampling=1.0)
+    t0 = time.perf_counter()
+    depth_fn = build_depth_fn("depthpro", 1536, 1080, 1920, False,
+                              device=dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"phase 3: full-width DepthPro (seed 0, bf16) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames = [frames_u8(B, dev, 10 + i) for i in range(batches)]
+    render_sbs(frames[0], depth_fn, params)              # warm-up
+    render_sbs(frames[0], depth_fn, ss1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path at the defaults
+    outs, batch_s, launches = drive(frames, depth_fn, params)
+    log(f"phase 3: launches over {batches} batches of {B} at the defaults "
+        f"(super_sampling 3): {launches}")
     for o in outs:
         check(tuple(o.shape) == (B, 1080, 3840, 3), o.shape)
         check(o.dtype == torch.uint8, o.dtype)
     check(all(v > 0 for v in launches.values()), launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the compat branch, shorter
+    outs1, batch_s1, launches1 = drive(frames[:BATCHES_SS1], depth_fn, ss1)
+    log(f"phase 3: launches over {BATCHES_SS1} batches at super_sampling 1: "
+        f"{launches1}")
+    for o in outs1:
+        check(tuple(o.shape) == (B, 1080, 3840, 3), o.shape)
+    check(all(launches1[k] > 0
+              for k in ("blur", "warp", "postprocess", "attention")),
+          launches1)
     depth = depth_fn(frames[0])
     check(depth.dtype == torch.uint8 and int(depth.max()) > int(depth.min()),
           "depth is constant")
 
-    # breakdown (outside the counted run)
+    # breakdown (outside the counted runs)
     t_depth = time_ms(lambda: depth_fn(frames[0]), reps=3)
-    t_sbs = time_ms(lambda: generate_sbs(frames[0], depth, params), reps=20)
-    fps = B * batches / sum(batch_s)
-    per_frame = sorted(1e3 * t / B for t in batch_s)
-    log(f"phase 3: depth {t_depth / B:.1f} ms/frame, SBS {t_sbs / B:.1f} "
-        f"ms/frame, end to end {fps:.3f} fps ({B * batches} frames, "
-        f"host clock; per batch {per_frame[0]:.1f} / "
-        f"{per_frame[len(per_frame) // 2]:.1f} / {per_frame[-1]:.1f} "
-        f"ms/frame min / median / max) on {card}")
-    log(f"phase 3: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t_sbs = time_ms(lambda: generate_sbs(frames[0], depth, params), reps=10)
+    t_sbs1 = time_ms(lambda: generate_sbs(frames[0], depth, ss1), reps=10)
+    for name, bs, t in (("super_sampling 3", batch_s, t_sbs),
+                        ("super_sampling 1", batch_s1, t_sbs1)):
+        per_frame = sorted(1e3 * x / B for x in bs)
+        log(f"phase 3: {name}: depth {t_depth / B:.1f} ms/frame, SBS "
+            f"{t / B:.1f} ms/frame, end to end {B * len(bs) / sum(bs):.3f} "
+            f"fps ({B * len(bs)} frames, host clock; per batch "
+            f"{per_frame[0]:.1f} / {per_frame[len(per_frame) // 2]:.1f} / "
+            f"{per_frame[-1]:.1f} ms/frame min / median / max) on {card}")
+    log(f"phase 3: peak device memory at the defaults {peak:.2f} GiB")
     prof = profile_device(lambda: render_sbs(frames[-1], depth_fn, params))
     tot = sum(prof["groups"].values())
-    log(f"phase 3: profile of one batch: window {prof['window_ms']:.2f} ms, "
-        f"device busy {prof['busy_ms']:.2f} ms "
+    log(f"phase 3: profile of one default batch: window "
+        f"{prof['window_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms "
         f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %, idle "
         f"{100 - 100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
         f"{prof['events']} device events")
@@ -347,22 +605,8 @@ def phase_slice(B: int, batches: int, card: str):
     log("phase 3: top kernels: " + "; ".join(
         f"{t:.2f} ms {n[:70]}" for n, t in prof["top"]))
 
-    # the SBS composition on the card vs the CPU plain path, small input
-    g = torch.Generator().manual_seed(3)
-    rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
-    dsm = (smooth_depth(2, 72, 128, torch.device("cpu"), 4) * 255).to(
-        torch.uint8)
-    small = StereoParams(max_disparity=50.0 * 128 / 1920,
-                         convergence=-10.0 * 128 / 1920, super_sampling=1.0)
-    ref = generate_sbs(rgb, dsm, small).int()
-    got = generate_sbs(rgb.to(dev), dsm.to(dev), small).cpu().int()
-    diff = (got - ref).abs().float()
-    mean, over1, top = (float(diff.mean()), float((diff > 1).float().mean()),
-                        int(diff.max()))
-    log(f"phase 3: small SBS card vs CPU plain: mean diff {mean:.4f}, "
-        f">1 code {over1:.5f}, max {top}")
-    check(mean < 0.05 and over1 < 0.005 and top <= 16,
-          "SBS on the card disagrees with the CPU plain path")
+    small_sbs_check(ss1, dev)
+    small_sbs_check(params, dev)
     return launches
 
 
@@ -435,7 +679,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = phase_card_and_build()
-    kern = phase_kernels(BATCH) if 2 in phases else {}
+    kern = {}
+    if 2 in phases:
+        kern = merge_kernel_results(phase_kernels(BATCH),
+                                    phase_ss_kernels(BATCH))
+        phase_4k()
     launches = phase_slice(BATCH, BATCHES, card) if 3 in phases else {}
     if 4 in phases:
         phase_cli()

@@ -14,12 +14,24 @@ from vsc_tpu_torch.ops import _cuda
 from vsc_tpu_torch.ops.attention_cuda import qkv_attention, qkv_attention_plain
 from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
                                          gaussian_blur_planes_plain)
+from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
+                                           sharpen_downscale_planar,
+                                           sharpen_downscale_plain)
 from vsc_tpu_torch.ops.inpaint import _pyramid_fill
+from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
+                                         avgpool2_plain, avgpool4_eye4,
+                                         avgpool_eye4_plain)
 from vsc_tpu_torch.ops.postprocess_cuda import (postprocess_eye,
                                                 postprocess_eye_plain)
+from vsc_tpu_torch.ops.pyramid_cuda import (pyramid_fill_below,
+                                            pyramid_fill_below_plain)
 from vsc_tpu_torch.ops.stereo import generate_sbs
+from vsc_tpu_torch.ops.upsample_cuda import (upsample_bilinear_int,
+                                             upsample_bilinear_int_plain)
 from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
-                                         forward_warp_eyes_plain)
+                                         forward_warp_eyes_plain,
+                                         forward_warp_eyes_planar,
+                                         forward_warp_eyes_planar_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -106,16 +118,84 @@ def test_attention_kernel_matches_plain(dev, N, T, H):
     assert float(diff.mean()) <= 1e-5
 
 
-def test_sbs_on_card_matches_cpu_plain(dev):
+@pytest.mark.parametrize("f,shape", [(2, (3, 13, 37)), (3, (2, 20, 301)),
+                                     (4, (1, 7, 150)), (3, (1, 1, 5))])
+@pytest.mark.parametrize("quantize_u8", [False, True])
+def test_upsample_kernel_is_exact(dev, f, shape, quantize_u8):
+    x = _rand(shape, 7, dev)
+    x = torch.floor(x * 256) if quantize_u8 else x
+    before = _cuda.LAUNCHES["upsample"]
+    got = upsample_bilinear_int(x, f, quantize_u8)
+    assert _cuda.LAUNCHES["upsample"] == before + 1
+    assert torch.equal(got, upsample_bilinear_int_plain(x, f, quantize_u8))
+
+
+def _eye4(b, h, w, seed, dev):
+    rgb = torch.floor(_rand((3, b, h, w), seed, dev) * 256)
+    valid = (_rand((b, h, w), seed + 1, dev) > 0.3).float()
+    return torch.cat([rgb * valid, valid[None]]).to(torch.uint8)
+
+
+@pytest.mark.parametrize("f,shape", [(2, (2, 34, 50)), (2, (1, 6, 2)),
+                                     (4, (2, 36, 52)), (4, (1, 4, 8))])
+def test_eye4_pool_kernel_is_exact(dev, f, shape):
+    eye4 = _eye4(*shape, 8, dev)
+    got = (avgpool2_eye4 if f == 2 else avgpool4_eye4)(eye4)
+    assert torch.equal(got, avgpool_eye4_plain(eye4, f))
+
+
+@pytest.mark.parametrize("shape", [(4, 18, 26), (16, 2, 6), (3, 40, 302)])
+def test_avgpool2_kernel_is_exact(dev, shape):
+    x = _rand(shape, 9, dev) * 255
+    assert torch.equal(avgpool2(x), avgpool2_plain(x))
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 13, 27), (1, 1, 9), (2, 7, 1),
+                                   (1, 1, 1), (4, 203, 381)])
+def test_pyramid_kernel_is_exact(dev, b, h, w):
+    valid = _rand((b, h, w), 10, dev)
+    valid = torch.where(valid < 0.4, torch.zeros_like(valid), valid)
+    valid[:, : h // 2, : w // 3] = 0.0
+    img = _rand((3, b, h, w), 11, dev) * 255 * valid
+    q = torch.cat([img, valid[None]]).contiguous()
+    assert torch.equal(pyramid_fill_below(q), pyramid_fill_below_plain(q))
+
+
+@pytest.mark.parametrize("ratio,h,w,offsets", [
+    (3, 30, 420, (30, 6)), (2, 22, 300, (0, 0)), (4, 12, 540, (4, 17)),
+    (3, 9, 129, (0, 0))])
+def test_finish_kernel_is_exact(dev, ratio, h, w, offsets):
+    crop_w = w - max(offsets)
+    x = torch.floor(_rand((3, 4, h, w), 12, dev) * 256).to(torch.uint8)
+    oh, ow = h // ratio, crop_w // ratio
+    got = sharpen_downscale_planar(x, ratio, 14.0, oh, ow, crop_w, offsets)
+    want = sharpen_downscale_plain(x, ratio, 14.0, oh, ow, crop_w, offsets)
+    assert torch.equal(got, want)
+    img = torch.movedim(x[..., :crop_w], 0, -1).float()
+    got32 = sharpen_downscale(img, ratio, 14.0, oh, ow)
+    want32 = sharpen_downscale(img.cpu(), ratio, 14.0, oh, ow)
+    assert torch.equal(got32.cpu(), want32)
+
+
+@pytest.mark.parametrize("shape,max_disp", [((2, 20, 90), 7.3),
+                                            ((1, 13, 64), 5.0)])
+def test_planar_warp_kernel_is_exact(dev, shape, max_disp):
+    B, H, W = shape
+    img = torch.floor(_rand((B, 3, H, W), 13, dev) * 256).to(torch.uint8)
+    depth = _rand(shape, 14, dev)
+    for a, b in zip(forward_warp_eyes_planar(img, depth, max_disp),
+                    forward_warp_eyes_planar_plain(img, depth, max_disp)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("super_sampling", [1.0, 2.0, 3.0])
+def test_sbs_on_card_matches_cpu_plain(dev, super_sampling):
     g = torch.Generator().manual_seed(6)
     rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
     depth = (torch.rand((2, 72, 128), generator=g) * 255).to(torch.uint8)
     params = StereoParams(max_disparity=4.0, convergence=-1.0,
-                          super_sampling=1.0)
+                          super_sampling=super_sampling)
     ref = generate_sbs(rgb, depth, params).int()
     got = generate_sbs(rgb.to(dev), depth.to(dev), params).cpu().int()
     diff = (got - ref).abs().float()
     assert float(diff.mean()) < 0.05 and int(diff.max()) <= 16
-    with pytest.raises(NotImplementedError):
-        generate_sbs(rgb.to(dev), depth.to(dev),
-                     StereoParams(super_sampling=2.0))

@@ -13,8 +13,13 @@ import jax.numpy as jnp
 from vsc_tpu_torch.ops import _cuda
 from vsc_tpu_torch.ops.attention_cuda import qkv_attention
 from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes
+from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
+                                           sharpen_downscale_planar)
+from vsc_tpu_torch.ops.pool_cuda import avgpool2, avgpool2_eye4, avgpool4_eye4
 from vsc_tpu_torch.ops.postprocess_cuda import postprocess_eye
-from vsc_tpu_torch.ops.warp_cuda import forward_warp_eyes
+from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
+from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
+from vsc_tpu_torch.ops.warp_cuda import forward_warp_eyes, forward_warp_eyes_planar
 
 
 def _t(x):
@@ -108,6 +113,23 @@ def test_attention_plain_matches_pallas(B, T, H, Dh):
                               torch.zeros((3, 1, 2, 2), device=m), 1.0),
     lambda m: qkv_attention(torch.zeros((1, 5, 192), dtype=torch.bfloat16,
                                         device=m), 1, 0.125),
+    lambda m: upsample_bilinear_int(torch.zeros((2, 4, 6), device=m), 3),
+    lambda m: upsample_bilinear_int(torch.zeros((2, 4, 6), device=m), 2,
+                                    quantize_u8=True),
+    lambda m: avgpool2_eye4(torch.zeros((4, 1, 8, 8), dtype=torch.uint8,
+                                        device=m)),
+    lambda m: avgpool4_eye4(torch.zeros((4, 1, 8, 8), dtype=torch.uint8,
+                                        device=m)),
+    lambda m: avgpool2(torch.zeros((4, 8, 8), device=m)),
+    lambda m: pyramid_fill_below(torch.zeros((4, 2, 5, 7), device=m)),
+    lambda m: sharpen_downscale_planar(
+        torch.zeros((3, 2, 9, 390), dtype=torch.uint8, device=m), 3, 14.0, 3,
+        128, 384, (0, 6)),
+    lambda m: sharpen_downscale(torch.zeros((1, 9, 390, 3), device=m), 3,
+                                14.0, 3, 130),
+    lambda m: forward_warp_eyes_planar(
+        torch.zeros((1, 3, 4, 8), dtype=torch.uint8, device=m),
+        torch.zeros((1, 4, 8), device=m), 2.0),
 ])
 def test_wrappers_never_fall_back_off_cpu(call):
     """Off the CPU a wrapper launches its kernel or raises: a tensor that is

@@ -150,12 +150,31 @@ def test_normalize_and_quantize_match_jax():
 
 
 def test_super_sampling_on_a_device_raises():
-    """super_sampling > 1 needs kernels not ported yet: off the CPU the
-    port refuses instead of running plain torch in their place."""
+    """Off the CPU the super-sampled path launches its kernels or raises: a
+    tensor that is neither on the CPU nor on a card is refused by the
+    upsample wrapper, not computed plainly."""
+    from vsc_tpu_torch.ops import _cuda
     rgb = torch.zeros((1, 8, 16, 3), dtype=torch.uint8, device="meta")
     depth = torch.zeros((1, 8, 16), dtype=torch.uint8, device="meta")
-    with pytest.raises(NotImplementedError, match="upsample.*pool.*pyramid"):
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="upsample: expected CUDA tensors"):
         tst.generate_sbs(rgb, depth, StereoParams(super_sampling=3.0))
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hw,params", [
+    ((1080, 1920), StereoParams()),
+    ((72, 128), StereoParams(max_disparity=50 * 128 / 1920,
+                             convergence=-10 * 128 / 1920)),
+    ((24, 48), StereoParams(max_disparity=6.0, convergence=-2.0,
+                            super_sampling=2.0)),
+    ((5, 200), StereoParams(super_sampling=3.0, artifact_smoothing=3.0)),
+    ((40, 64), StereoParams(super_sampling=2.5)),
+])
+def test_planar_u8_gate_matches_jax(hw, params):
+    s = tst.sbs_shapes(*hw, params)
+    assert (tst._planar_u8_geometry_ok(s, params)
+            == jst._planar_u8_geometry_ok(s, params))
 
 
 def test_super_sampling_runs_plain_on_cpu():

@@ -1,0 +1,176 @@
+"""The plain versions of the planar-u8 stereo branch's kernels (upsample,
+pools, pyramid, finish, planar warp) against the JAX Pallas kernels they
+replace, run in interpret mode on the CPU as the JAX package's own tests
+run them. The kernels are compared with these plain versions on the card
+by chip_smoke.py and tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vsc_tpu_torch.ops import inpaint as tinp
+from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
+                                           sharpen_downscale_planar)
+from vsc_tpu_torch.ops.pool_cuda import avgpool2, avgpool2_eye4, avgpool4_eye4
+from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
+from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
+from vsc_tpu_torch.ops.warp_cuda import forward_warp_eyes_planar
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _eye4(b, h, w, seed, holes=0.3):
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (3, b, h, w))
+    valid = (rng.random((b, h, w)) > holes).astype(np.int64)
+    return np.concatenate([rgb * valid, valid[None]]).astype(np.uint8)
+
+
+@pytest.mark.parametrize("f,shape", [(2, (3, 13, 37)), (3, (2, 20, 45)),
+                                     (4, (1, 7, 150)), (3, (1, 1, 5))])
+@pytest.mark.parametrize("quantize_u8", [False, True])
+def test_upsample_plain_matches_pallas(f, shape, quantize_u8):
+    from vsc_tpu.ops.upsample_pallas import upsample_bilinear_int_pallas
+    rng = np.random.default_rng(f)
+    if quantize_u8:   # the RGB planes: integers in [0, 255]
+        x = rng.integers(0, 256, shape).astype(np.float32)
+    else:             # the depth plane
+        x = rng.random(shape).astype(np.float32)
+    got = upsample_bilinear_int(_t(x), f, quantize_u8=quantize_u8).numpy()
+    want = np.asarray(upsample_bilinear_int_pallas(jnp.asarray(x), f,
+                                                   quantize_u8=quantize_u8))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if quantize_u8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("entry,shape", [
+    ("avgpool2_eye4", (2, 34, 50)),
+    ("avgpool2_eye4", (1, 6, 2)),
+    ("avgpool4_eye4", (2, 36, 52)),
+    ("avgpool4_eye4", (1, 4, 8)),
+])
+def test_eye4_pools_match_pallas(entry, shape):
+    from vsc_tpu.ops import pool_pallas
+    eye4 = _eye4(*shape, seed=len(entry) + shape[1])
+    got = {"avgpool2_eye4": avgpool2_eye4,
+           "avgpool4_eye4": avgpool4_eye4}[entry](_t(eye4)).numpy()
+    want = np.asarray(getattr(pool_pallas, entry)(jnp.asarray(eye4)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 18, 26), (16, 2, 6)])
+def test_avgpool2_matches_pallas(shape):
+    from vsc_tpu.ops.pool_pallas import avgpool2 as j_avgpool2
+    x = np.random.default_rng(3).random(shape).astype(np.float32) * 255
+    got = avgpool2(_t(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_avgpool2(jnp.asarray(x))))
+
+
+def _quarter(b, h, w, seed):
+    """A pooled (img * valid x3, valid) stack with empty regions."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((b, h, w)).astype(np.float32)
+    valid[valid < 0.4] = 0.0
+    valid[:, : h // 2, : w // 3] = 0.0          # a hole the ladder must fill
+    img = rng.random((3, b, h, w)).astype(np.float32) * 255 * valid
+    return np.concatenate([img, valid[None]])
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 13, 27), (1, 1, 9), (2, 7, 1),
+                                   (1, 1, 1), (2, 51, 96)])
+def test_pyramid_plain_matches_pallas(b, h, w):
+    from vsc_tpu.ops.pyramid_pallas import pyramid_fill_below as j_pyr
+    q = _quarter(b, h, w, seed=h * w)
+    got = pyramid_fill_below(_t(q)).numpy()
+    want = np.asarray(j_pyr(jnp.asarray(q)))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("h,w", [(72, 136), (72, 134), (71, 133)])
+def test_planar_coarse_fill_matches_jax(monkeypatch, h, w):
+    """The prepass routes (4x4 kernel, 2x2 + 2x2 kernels, odd glue) and the
+    upper ladder above the handoff level, which 16 makes run here."""
+    from vsc_tpu.ops.inpaint import _pyramid_fill_planar_coarse
+    monkeypatch.setenv("VSC_TPU_SBS", "planar")
+    monkeypatch.setenv("VSC_TPU_PYR_KMAX", "16")
+    monkeypatch.setattr(tinp, "PYR_KMAX", 16)
+    eye4 = _eye4(2, h, w, seed=h + w)
+    eye4[:, :, 10:40, 20:70] = 0                  # a wide disocclusion
+    got = tinp._pyramid_fill_planar_coarse(_t(eye4)).numpy()
+    want = np.asarray(_pyramid_fill_planar_coarse(jnp.asarray(eye4)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _pp_out(b, h, w, seed):
+    """Postprocess-like u8 planes: smooth content plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 128 + 90 * np.sin(xx / 11.0) * np.cos(yy / 5.0)
+    x = base[None, None] + rng.normal(0, 12, (3, b, h, w))
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("ratio,h,w,strength", [(3, 30, 390, 14.0),
+                                                (2, 22, 300, 14.0),
+                                                (4, 12, 520, 5.0),
+                                                (3, 9, 129, 0.0)])
+def test_finish_plain_matches_pallas(ratio, h, w, strength):
+    from vsc_tpu.ops.finish_pallas import sharpen_downscale_planar as j_fin
+    x = _pp_out(2, h, w, seed=ratio)
+    oh, ow = h // ratio, w // ratio
+    got = sharpen_downscale_planar(_t(x), ratio, strength, oh, ow).numpy()
+    want = np.asarray(j_fin(jnp.asarray(x), ratio, strength, oh, ow))
+    diff = np.abs(got.astype(int) - want.astype(int))
+    # the JAX kernel sums the box by matmul (its own order), so a value on
+    # an integer can floor either way: <= 1 code on < 0.1 % of pixels
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (diff.max(),
+                                                          (diff > 0).mean())
+
+
+def test_finish_crops_each_eye_at_its_offset():
+    """The pair form reads the uncropped planes at (lo, ro); JAX crops
+    first."""
+    from vsc_tpu.ops.finish_pallas import sharpen_downscale_planar as j_fin
+    x = _pp_out(4, 24, 420, seed=5)
+    lo, ro, crop_w = 30, 6, 390
+    got = sharpen_downscale_planar(_t(x), 3, 14.0, 8, 130, crop_w,
+                                   (lo, ro)).numpy()
+    cropped = np.concatenate([x[:, :2, :, lo:lo + crop_w],
+                              x[:, 2:, :, ro:ro + crop_w]], axis=1)
+    want = np.asarray(j_fin(jnp.asarray(cropped), 3, 14.0, 8, 130))
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("h,w", [(27, 300), (12, 96)])
+def test_finish_f32_entry_matches_pallas(h, w):
+    """The compat branch's entry; 12 x 96 takes the JAX glue (W < 129)."""
+    from vsc_tpu.ops.finish_pallas import sharpen_downscale as j_fin
+    img = np.moveaxis(_pp_out(2, h, w, seed=w), 0, -1).astype(np.float32)
+    got = sharpen_downscale(_t(img), 3, 14.0, h // 3, w // 3).numpy()
+    want = np.asarray(j_fin(jnp.asarray(img), 3, 14.0, h // 3, w // 3))
+    assert got.shape == want.shape == (2, h // 3, w // 3, 3)
+    np.testing.assert_allclose(got, want, atol=1e-2)
+
+
+@pytest.mark.parametrize("max_disp", [4.0, 9.7])
+def test_planar_warp_plain_matches_pallas(max_disp):
+    from vsc_tpu.ops.warp_pallas import forward_warp_stereo_pallas_planar_u8
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (2, 3, 24, 96)).astype(np.uint8)
+    depth = rng.random((2, 24, 96)).astype(np.float32)
+    depth = (depth + np.roll(depth, 1, 1) + np.roll(depth, 1, 2)) / 3.0
+    got = forward_warp_eyes_planar(_t(img), _t(depth), max_disp)
+    want = forward_warp_stereo_pallas_planar_u8(jnp.asarray(img),
+                                                jnp.asarray(depth), max_disp)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

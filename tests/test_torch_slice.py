@@ -1,6 +1,7 @@
 """The port's streaming slice against the JAX package, on the CPU:
-(a) the device work of one batch (small DepthPro + SBS at super_sampling 1)
-against the JAX composition with its Pallas kernels in interpret mode;
+(a) the device work of one batch (small DepthPro + SBS at super_sampling 1,
+the compat branch, and 3, the default planar-u8 branch) against the JAX
+composition with its Pallas kernels in interpret mode;
 (b) the port's stream_convert CLI on the workflow fixture."""
 
 import numpy as np
@@ -26,8 +27,12 @@ SMALL = dict(img_size=128, tile_size=32, hook_block_ids=(0, 2),
              decoder_features=16, dims_encoder=(16, 24, 32, 32))
 H, W = 72, 128
 # 1080p defaults with disparity and convergence scaled from 1920 to W
-PARAMS = StereoParams(max_disparity=50.0 * W / 1920,
-                      convergence=-10.0 * W / 1920, super_sampling=1.0)
+
+
+def _params(super_sampling):
+    return StereoParams(max_disparity=50.0 * W / 1920,
+                        convergence=-10.0 * W / 1920,
+                        super_sampling=super_sampling)
 
 
 def _frames(b=2, seed=0):
@@ -56,8 +61,11 @@ def _jax_depth(model, params, frames):
     return jnp.round(norm * 255.0).astype(jnp.uint8)
 
 
-def test_render_sbs_matches_jax_kernel_path(tmp_path, monkeypatch):
+@pytest.mark.parametrize("super_sampling", [1.0, 3.0])
+def test_render_sbs_matches_jax_kernel_path(tmp_path, monkeypatch,
+                                            super_sampling):
     from vsc_tpu.ops import stereo
+    sbs_params = _params(super_sampling)
     jcfg = JCfg(encoder=JViTCfg(flash_attention=True, **ENC),
                 use_fov_head=False, **SMALL)
     model = JDepthPro(jcfg)
@@ -71,14 +79,17 @@ def test_render_sbs_matches_jax_kernel_path(tmp_path, monkeypatch):
         "depthpro", 128, H, W, False, str(npz), device="cpu",
         model_cfg=DepthProConfig(encoder=ViTConfig(**ENC), **SMALL))
     got_depth = depth_fn(torch.from_numpy(frames)).numpy()
-    got = render_sbs(torch.from_numpy(frames), depth_fn, PARAMS).numpy()
+    got = render_sbs(torch.from_numpy(frames), depth_fn, sbs_params).numpy()
 
     want_depth = _jax_depth(model, params, frames)
     for knob in ("VSC_TPU_BLUR", "VSC_TPU_WARP", "VSC_TPU_POSTPROCESS"):
         monkeypatch.setenv(knob, "pallas")
+    if super_sampling > 1:
+        monkeypatch.setenv("VSC_TPU_SBS", "planar")
     stereo._generate_sbs_impl.clear_cache()
     try:
-        want = np.asarray(stereo.generate_sbs(frames, want_depth, PARAMS))
+        want = np.asarray(stereo.generate_sbs(frames, want_depth,
+                                              sbs_params))
     finally:
         stereo._generate_sbs_impl.clear_cache()
 

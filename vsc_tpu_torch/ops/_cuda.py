@@ -3,10 +3,11 @@ CUDA kernel library: build, load, launch bookkeeping
 ====================================================
 
 All hand-written kernels live in ``vsc_tpu_torch/csrc/*.cu`` and compile
-with ``nvcc`` into ONE shared library with a plain C interface, loaded via
-``ctypes`` (no PyTorch headers, so a build takes seconds). The build runs at
-first use into ``build/vsc_tpu_torch/`` under the repository root, keyed by
-a hash of the sources, so a stale library is never loaded.
+with ``nvcc`` (one process per source, all started together) into ONE shared
+library with a plain C interface, loaded via ``ctypes`` (no PyTorch headers,
+so a build takes seconds). The build runs at first use into
+``build/vsc_tpu_torch/`` under the repository root, keyed by a hash of the
+sources, so a stale library is never loaded.
 
 Every C entry point returns a ``cudaError_t`` (0 = launched); ``check``
 turns anything else into a RuntimeError. ``LAUNCHES`` counts launches per
@@ -32,7 +33,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vsc_tpu_torch"
 NVCC_TIMEOUT = 600.0
 
-LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0}
+LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
+            "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0}
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -41,6 +43,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
     # x, out, taps(host), N, H, W, ksize, gamma, has_gamma, stream
@@ -48,12 +51,28 @@ _SIGNATURES = {
     # depth, image (channel-last), eye_l, eye_r, rows, W, max_disparity,
     # stream
     "vsc_warp": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # depth, image [B, 3, H, W] u8, eye_l, eye_r, B, H, W, max_disparity,
+    # stream
+    "vsc_warp_planar_u8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # eye4, smooth_q, out, chans, v0, v1, k0, k1, keep, tables(host),
     # B, H, W, Hq, Wq, M, rb, stream
     "vsc_postprocess": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _P],
     # qkv, out, N, T, heads, scale, stream
     "vsc_qkv_attention": [_P, _P, _I, _I, _I, _F, _P],
+    # x, out, d0(host), k(host), wa(host), wb(host), N, H, W, f,
+    # quantize_u8, stream
+    "vsc_upsample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # eye4 u8, out f32, B, H, W, f, stream
+    "vsc_pool_eye4": [_P, _P, _I, _I, _I, _I, _P],
+    # planes f32, out f32, N, H, W, stream
+    "vsc_pool2": [_P, _P, _I, _I, _I, _P],
+    # quarter, out, workspace, N, h, w, workspace floats per frame, stream
+    "vsc_pyramid": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # planes u8, out, taps(host), N, H, Wf, crop_w, off0, off1, nsplit,
+    # ratio, strength, out_h, out_w, out_u8, stream
+    "vsc_finish": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                   _I, _P],
 }
 
 
@@ -69,29 +88,55 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side; raise on the first failure. Returns
+    each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs, failed = [], None
+    try:
+        for c, proc in zip(cmds, procs):
+            _, err = proc.communicate(timeout=NVCC_TIMEOUT)
+            errs.append(err)
+            if proc.returncode != 0 and failed is None:
+                failed = f"{' '.join(c)} failed ({proc.returncode}):\n{err[-8000:]}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError(failed)
+    return errs
+
+
 def _build() -> Path:
+    """One nvcc per source, all started together, then one link."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256()
     for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    out = _BUILD_DIR / f"libvsc_kernels_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    out = _BUILD_DIR / f"libvsc_kernels_{tag}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(p) for p in sources]
+    nvcc = _nvcc()
+    objs = [_BUILD_DIR / f"{p.stem}_{tag}.{os.getpid()}.o" for p in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    (_BUILD_DIR / "ptxas.log").write_text(proc.stderr)
-    tmp.replace(out)
+    logs = _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                      "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                      "-v", "-c", "-o", str(o), str(p)]
+                     for p, o in zip(sources, objs)])
+    (_BUILD_DIR / "ptxas.log").write_text("".join(logs))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        _run_all([[nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]])
+        tmp.replace(out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     BUILD_SECONDS.append(time.perf_counter() - t0)
     return out
 

@@ -9,6 +9,12 @@ reach, its nearest upsample, and the Telea-like ``pyramid_inpaint``
 edge-replicated borders. The stereo path computes the quarter-resolution
 estimate here and hands it to the postprocess kernel, which does the sweeps
 and polish itself (ops/postprocess_cuda.py).
+
+``_pyramid_fill_planar_coarse`` is the planar-u8 form the super-sampled
+stereo branch uses: the pool kernels (ops/pool_cuda.py) for the first two
+levels, torch glue down to ``PYR_KMAX``, the pyramid kernel
+(ops/pyramid_cuda.py) below it. ``_push_pull_hw`` is the plain ladder over
+the last two axes that both kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ import math
 import torch
 
 __all__ = ["pyramid_inpaint", "disc_offsets"]
+
+# largest side of the level handed to the pyramid kernel; the levels above
+# it stay torch glue (the JAX package's VSC_TPU_PYR_KMAX default)
+PYR_KMAX = 384
 
 
 def disc_offsets(radius: int):
@@ -90,6 +100,80 @@ def _pyramid_fill(image, valid, coarse_factor: int = 1,
     if filled.shape[1] != out_h or filled.shape[2] != out_w:
         filled = _upsample_nearest(filled, out_h, out_w, coarse_factor)
     return filled
+
+
+def _edge_even(x):
+    """Edge-pad the last two axes of x to even sizes."""
+    H, W = x.shape[-2], x.shape[-1]
+    if not (H | W) & 1:
+        return x
+    iy = torch.clamp(torch.arange(H + (H & 1), device=x.device), 0, H - 1)
+    ix = torch.clamp(torch.arange(W + (W & 1), device=x.device), 0, W - 1)
+    return x.index_select(-2, iy).index_select(-1, ix)
+
+
+def _avgpool2_hw(x):
+    """2x2 average pool over the last two axes, odd dims edge-padded first:
+    ((a + c) + (b + d)) * 0.25 rounding, as the jnp average of averages."""
+    x = _edge_even(x)
+    xh = (x[..., 0::2, :] + x[..., 1::2, :]) * 0.5
+    return (xh[..., 0::2] + xh[..., 1::2]) * 0.5
+
+
+def _upsample_nearest_hw(x, out_h: int, out_w: int, factor: int):
+    """Nearest integer-factor upsample over the last two axes."""
+    iy = torch.clamp(torch.arange(out_h, device=x.device) // factor,
+                     max=x.shape[-2] - 1)
+    ix = torch.clamp(torch.arange(out_w, device=x.device) // factor,
+                     max=x.shape[-1] - 1)
+    return x.index_select(-2, iy).index_select(-1, ix)
+
+
+def _push_pull_hw(img, msk, kmax: int = 1, below=None):
+    """Masked push-pull of [3, B, h, w] ``img`` (already times the mask)
+    under [B, h, w] ``msk``: pool while the larger side exceeds ``kmax``,
+    fill the last level (img / msk at 1 x 1, or ``below`` of the stacked
+    [4, B, h', w'] level), then combine back up level by level."""
+    levels = []
+    while max(msk.shape[-2], msk.shape[-1]) > kmax:
+        levels.append((img, msk))
+        img, msk = _avgpool2_hw(img), _avgpool2_hw(msk)
+    if below is None:
+        filled = img / torch.clamp(msk, min=1e-8)
+    else:
+        filled = below(torch.cat([img, msk[None]]))
+    for img_l, msk_l in reversed(levels):
+        up = _upsample_nearest_hw(filled, img_l.shape[-2], img_l.shape[-1], 2)
+        filled = torch.where(msk_l > 1e-8, img_l / torch.clamp(msk_l, min=1e-8),
+                             up)
+    return filled
+
+
+def _pyramid_fill_planar_coarse(eye4):
+    """[4, B, H, W] uint8 (r, g, b, valid) eye stack -> the [3, B, ~H/4,
+    ~W/4] float32 quarter-resolution push-pull estimate, in the plane-major
+    layout the postprocess kernel reads. Equal to
+    ``_pyramid_fill(img, valid, coarse_factor=4, return_coarse=True)``.
+
+    The structure the JAX package takes on the TPU: even H and W pool in
+    the kernels (one 4x4 launch when both divide by 4, else 2x2 from u8 and
+    2x2 on f32), odd ones in torch; torch glue pools on while a side
+    exceeds ``PYR_KMAX``; the pyramid kernel fills from there down."""
+    from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
+                                             avgpool4_eye4)
+    from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
+    H, W = eye4.shape[-2], eye4.shape[-1]
+    if H % 4 == 0 and W % 4 == 0:
+        x = avgpool4_eye4(eye4)
+    elif H % 2 == 0 and W % 2 == 0:
+        x = _edge_even(avgpool2_eye4(eye4))
+        K, B, h, w = x.shape
+        x = avgpool2(x.reshape(K * B, h, w)).reshape(K, B, h // 2, w // 2)
+    else:
+        msk = eye4[3].to(torch.float32)
+        x = torch.cat([eye4[:3].to(torch.float32) * msk, msk[None]])
+        x = _avgpool2_hw(_avgpool2_hw(x))
+    return _push_pull_hw(x[:3], x[3], PYR_KMAX, pyramid_fill_below)
 
 
 def _frontier_sweep(val, known):

@@ -14,7 +14,10 @@ are copied rather than imported, because importing anything under
 
 Integer-factor bilinear upsampling and integer-factor area downscaling take
 the same phase-decomposition / reshape-mean forms as the reference, so the
-arithmetic (and its rounding) is the same.
+arithmetic (and its rounding) is the same. A bilinear upsample by the same
+integer factor on both axes of a CUDA tensor runs the upsample kernel
+(ops/upsample_cuda.py, bit-identical to the phase decomposition), as the
+JAX package routes it to its Pallas kernel on the TPU.
 """
 
 from __future__ import annotations
@@ -160,5 +163,20 @@ def resize(img, out_h: int, out_w: int, method: str = "bilinear",
     """Resize a float tensor to (out_h, out_w). Spatial dims are the last
     two axes, or (-3, -2) with ``channel_last`` ([..., H, W, C])."""
     h_axis = img.ndim - (3 if channel_last else 2)
+    H, W = img.shape[h_axis], img.shape[h_axis + 1]
+    if (method == "bilinear" and img.device.type != "cpu" and H and W
+            and out_h % H == 0 and out_w % W == 0
+            and out_h // H == out_w // W and out_h > H):
+        from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
+        dt = img.dtype
+        x = img.to(torch.float32)
+        if channel_last:
+            x = torch.movedim(x, -1, -3)
+        lead = x.shape[:-2]
+        out = upsample_bilinear_int(x.reshape(-1, H, W).contiguous(),
+                                    out_h // H).reshape(*lead, out_h, out_w)
+        if channel_last:
+            out = torch.movedim(out, -3, -1)
+        return out.to(dt)
     img = _resample_axis(img, h_axis, out_h, method)
     return _resample_axis(img, h_axis + 1, out_w, method)

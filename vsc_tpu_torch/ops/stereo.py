@@ -2,26 +2,36 @@
 Stereo SBS pipeline (PyTorch)
 =============================
 
-Port of ``vsc_tpu/ops/stereo.py`` — the compat branch
-(``vsc_tpu/ops/stereo.py:353-389``), which is what the JAX package runs at
-``super_sampling`` 1. Torch glue between three hand-written kernels:
+Port of ``vsc_tpu/ops/stereo.py``, taking on every device the structure the
+JAX package takes on the TPU: where it calls a Pallas kernel the port calls
+its hand-written CUDA kernel (CUDA tensors) or that kernel's plain version
+(CPU tensors); where it runs jnp the port runs torch glue.
 
   1. pre-stretch rgb + depth by (2*max_disparity + |convergence|)/W,
      Lanczos4, integer-quantized like cv2's u8/u16 output
   2. per-frame min-max depth normalization (zeros if flat)
-  3. super-sampling (CPU tensors only for now; see below)
+  3. super-sampling, bilinear                  -> upsample kernel
   4-5. gaussian edge softening + depth gamma   -> blur kernel
   6. forward warp, both eyes                   -> warp kernel
-  7. per-eye postprocess on the quarter-res pyramid estimate
-                                               -> postprocess kernel
+  7. postprocess on the quarter-res pyramid estimate
+                                               -> pool, pyramid and
+                                                  postprocess kernels
   8. convergence crop
-  9. unsharp sharpen                           -> blur kernel (5x5)
-  10. area downscale (super-sampling only), floor to u8, SBS pack
+  9-10. unsharp sharpen, area downscale (super-sampling only), floor to
+     u8, SBS pack                              -> finish kernel
 
-CUDA tensors with ``super_sampling > 1`` raise NotImplementedError: the
-JAX package runs that setting through four further kernels (upsample,
-pool, pyramid, finish) that are not ported yet, and the port does not
-quietly replace them with plain PyTorch on the card.
+Two branches, chosen as the JAX package chooses them on the TPU:
+
+  planar-u8 (``vsc_tpu/ops/stereo.py:285-351``): super-sampling at an
+    integer ratio on frames large enough for the finish and postprocess
+    kernels (``_planar_u8_geometry_ok``), which is the default
+    ``super_sampling`` 3 at any real frame size. The RGB is upsampled
+    straight to planar u8, both eyes ride one [4, 2B, H', W'] pair through
+    the pyramid, the postprocess and the finish, and the finish crops each
+    eye at its own offset.
+  compat (``:353-389``): everything else (``super_sampling`` 1, non-integer
+    ratios, tiny frames), channel-last, one eye at a time; the finish
+    kernel's f32 entry at integer ratios.
 """
 
 from __future__ import annotations
@@ -31,15 +41,17 @@ import torch
 from vsc_tpu.config.stereo_params import StereoParams
 from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes
 from vsc_tpu_torch.ops.filters import unsharp_mask
-from vsc_tpu_torch.ops.inpaint import _pyramid_fill
-from vsc_tpu_torch.ops.postprocess_cuda import postprocess_eye
+from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
+                                           sharpen_downscale_planar)
+from vsc_tpu_torch.ops.inpaint import (_pyramid_fill,
+                                       _pyramid_fill_planar_coarse)
+from vsc_tpu_torch.ops.postprocess_cuda import _margin, postprocess_eye
 from vsc_tpu_torch.ops.resize import resize
-from vsc_tpu_torch.ops.warp_cuda import forward_warp_eyes
+from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
+from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
+                                         forward_warp_eyes_planar)
 
 __all__ = ["generate_sbs", "sbs_shapes", "StereoParams"]
-
-SS_KERNELS_TO_PORT = ("upsample (upsample_pallas.py)", "pool (pool_pallas.py)",
-                      "pyramid (pyramid_pallas.py)", "finish (finish_pallas.py)")
 
 
 def sbs_shapes(height: int, width: int, params: StereoParams) -> dict:
@@ -93,6 +105,18 @@ def _crop_offsets(height: int, width: int,
     return max(0, min(left, hi)), max(0, min(right, hi)), crop_w
 
 
+def _planar_u8_geometry_ok(s: dict, params: StereoParams) -> bool:
+    """The planar-u8 branch's small-frame gate: the finish kernel takes
+    crops of at least 129 columns and 5 rows, and the JAX postprocess
+    kernel's reflect-101 halo (the stencil reach rounded up to 4 rows and
+    64 columns) must stay smaller than the eye."""
+    need = _margin(params.artifact_smoothing)
+    halo_r = -(-need // 4) * 4
+    halo_c = -(-need // 64) * 64
+    return (s["crop_w"] >= 129 and s["up_h"] >= 5
+            and halo_r < s["up_h"] and halo_c < s["up_w"])
+
+
 def _postprocess_eye(eye4, artifact_smoothing: float):
     """[4, B, H, W] u8 warped eye -> [3, B, H, W] u8: the quarter-res
     push-pull estimate (plain torch, as the JAX compat branch computes it
@@ -125,14 +149,13 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
       input's device.
     """
     params = params or StereoParams()
-    if params.super_sampling > 1.0 and rgb.device.type != "cpu":
-        raise NotImplementedError(
-            "generate_sbs: super_sampling > 1 on a GPU needs the kernels "
-            "not ported yet: " + ", ".join(SS_KERNELS_TO_PORT)
-            + "; set super_sampling: 1.0 in the workflow's stereo config")
     depth_max = _depth_max(depth)
     B, H, W, _ = rgb.shape
     s = sbs_shapes(H, W, params)
+    ratio = s["scale_ratio"]
+    super_sampled = params.super_sampling > 1.0
+    integer_ratio = super_sampled and float(ratio).is_integer()
+    planar_u8 = integer_ratio and _planar_u8_geometry_ok(s, params)
     rgb = rgb.to(torch.float32)
     depth = depth.to(torch.float32)
 
@@ -146,11 +169,26 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
     # 2. normalize
     depth_n = _normalize_depth(depth_st)
 
-    # 3. super-sampling (CPU only, see the module docstring)
-    if params.super_sampling > 1.0:
-        depth_n = resize(depth_n, s["up_h"], s["up_w"], "bilinear")
-        rgb_st = resize(rgb_st, s["up_h"], s["up_w"], "bilinear",
-                        channel_last=True)
+    # 3. super-sampling; the planar-u8 branch upsamples the RGB channel
+    # first straight to u8 (the warp's own input quantization: floor
+    # commutes with its winner selection)
+    up_h, up_w = s["up_h"], s["up_w"]
+    if super_sampled:
+        depth_n = resize(depth_n, up_h, up_w, "bilinear")
+        if planar_u8:
+            SW = s["stretched_w"]
+            x_cf = torch.movedim(rgb_st, -1, 1)
+            if up_h % H == 0 and up_w % SW == 0 and up_h // H == up_w // SW:
+                rgb_st = upsample_bilinear_int(
+                    x_cf.reshape(-1, H, SW).contiguous(), up_h // H,
+                    quantize_u8=True).reshape(B, 3, up_h, up_w)
+            else:
+                rgb_st = torch.floor(torch.clamp(resize(
+                    x_cf, up_h, up_w, "bilinear"), 0.0, 255.0)).to(
+                        torch.uint8)
+        else:
+            rgb_st = resize(rgb_st, up_h, up_w, "bilinear",
+                            channel_last=True)
 
     # 4-5. edge softening + depth gamma
     gam = params.depth_gamma if params.depth_gamma != 1.0 else None
@@ -163,6 +201,19 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
 
     lo, ro, crop_w = _crop_offsets(H, W, params)
 
+    if planar_u8:
+        # 6-10 on the [4, 2B, H', W'] pair of both eyes
+        eye_l, eye_r = forward_warp_eyes_planar(
+            rgb_st.contiguous(), depth_n.contiguous(), params.max_disparity)
+        pair = torch.cat([eye_l, eye_r], dim=1)
+        del eye_l, eye_r
+        smooth_q = _pyramid_fill_planar_coarse(pair)
+        out = postprocess_eye(pair, smooth_q, params.artifact_smoothing)
+        fin = sharpen_downscale_planar(out, int(ratio), float(params.sharpen),
+                                       H, W, crop_w, (lo, ro))
+        sbs = torch.cat([fin[:, :B], fin[:, B:]], dim=3)   # [3, B, H, 2W]
+        return torch.movedim(sbs, 0, -1).contiguous()
+
     # 6. forward warp, both eyes -> [4, B, H', W'] u8 stacks
     eyes = forward_warp_eyes(rgb_st.contiguous(), depth_n.contiguous(),
                              params.max_disparity)
@@ -173,10 +224,14 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
         out = _postprocess_eye(eye4, params.artifact_smoothing)
         img = torch.movedim(out[..., off:off + crop_w], 0, -1).to(
             torch.float32)
-        if params.sharpen > 0:
-            img = unsharp_mask(img, params.sharpen)
-        if params.super_sampling > 1.0:
-            img = resize(img, H, W, "area", channel_last=True)
+        if integer_ratio:
+            img = sharpen_downscale(img, int(ratio), float(params.sharpen),
+                                    H, W)
+        else:
+            if params.sharpen > 0:
+                img = unsharp_mask(img, params.sharpen)
+            if super_sampled:
+                img = resize(img, H, W, "area", channel_last=True)
         finals.append(img)
     sbs = torch.cat(finals, dim=2)
     return torch.floor(torch.clamp(sbs, 0.0, 255.0)).to(torch.uint8)

@@ -2,11 +2,13 @@
 Forward stereo warp — CUDA kernel wrapper and plain version
 ===========================================================
 
-Replaces ``vsc_tpu/ops/warp_pallas.py:_warp_planes`` (compat entry
-``forward_warp_stereo_pallas``): both eyes of the gather warp, emitted as
-the [4, B, H, W] uint8 (r, g, b, valid) stacks the postprocess consumes.
-Colors are floor(clip(., 0, 255)) of the winning source pixel; the winner
-rule is ops/warp.py's, bit for bit. Kernel source: ``csrc/warp.cu``.
+Replaces ``vsc_tpu/ops/warp_pallas.py:_warp_planes`` (entries
+``forward_warp_stereo_pallas``, channel-last float32 image, and
+``forward_warp_stereo_pallas_planar_u8``, planar [B, 3, H, W] uint8 image):
+both eyes of the gather warp, emitted as the [4, B, H, W] uint8 (r, g, b,
+valid) stacks the postprocess consumes. Colors are floor(clip(., 0, 255))
+of the winning source pixel; the winner rule is ops/warp.py's, bit for bit.
+Kernel source: ``csrc/warp.cu`` (one scan, templated on the color loader).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 
 from vsc_tpu_torch.ops import _cuda
 
-__all__ = ["forward_warp_eyes", "forward_warp_eyes_plain"]
+__all__ = ["forward_warp_eyes", "forward_warp_eyes_plain",
+           "forward_warp_eyes_planar", "forward_warp_eyes_planar_plain"]
 
 
 def _stack_eye(img, mask):
@@ -50,5 +53,38 @@ def forward_warp_eyes(image, depth, max_disparity: float):
         eye_r.data_ptr(), B * H, W, float(max_disparity),
         _cuda.stream_ptr(image.device))
     _cuda.check(code, "vsc_warp")
+    _cuda.LAUNCHES["warp"] += 1
+    return eye_l, eye_r
+
+
+def forward_warp_eyes_planar_plain(image_cf, depth, max_disparity: float):
+    """image_cf [B, 3, H, W] uint8, depth [B, H, W] float32 ->
+    (eye_l, eye_r), each [4, B, H, W] uint8."""
+    return forward_warp_eyes_plain(
+        torch.movedim(image_cf, 1, -1).to(torch.float32), depth,
+        max_disparity)
+
+
+def forward_warp_eyes_planar(image_cf, depth, max_disparity: float):
+    """The planar-u8 entry. CPU tensors: the plain version; CUDA tensors:
+    the kernel."""
+    if image_cf.device.type == "cpu" and depth.device.type == "cpu":
+        return forward_warp_eyes_planar_plain(image_cf, depth, max_disparity)
+    _cuda.require_cuda("forward_warp_planar", image_cf, depth)
+    B, C, H, W = image_cf.shape
+    if (C != 3 or tuple(depth.shape) != (B, H, W)
+            or image_cf.dtype != torch.uint8 or depth.dtype != torch.float32):
+        raise ValueError(f"forward_warp_planar: need image [B,3,H,W] uint8 "
+                         f"and depth [B,H,W] float32, got "
+                         f"{tuple(image_cf.shape)} {image_cf.dtype}, "
+                         f"{tuple(depth.shape)} {depth.dtype}")
+    eye_l = torch.empty((4, B, H, W), dtype=torch.uint8,
+                        device=image_cf.device)
+    eye_r = torch.empty_like(eye_l)
+    code = _cuda.library().vsc_warp_planar_u8(
+        depth.data_ptr(), image_cf.data_ptr(), eye_l.data_ptr(),
+        eye_r.data_ptr(), B, H, W, float(max_disparity),
+        _cuda.stream_ptr(image_cf.device))
+    _cuda.check(code, "vsc_warp_planar_u8")
     _cuda.LAUNCHES["warp"] += 1
     return eye_l, eye_r

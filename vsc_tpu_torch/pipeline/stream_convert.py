@@ -14,8 +14,8 @@ callable without the media engine::
 
     python -m vsc_tpu_torch.pipeline.stream_convert <workflow> --model depthpro
 
-On CUDA the SBS stage needs ``super_sampling: 1.0`` in the workflow's
-stereo config for now (ops/stereo.py).
+The SBS stage runs the workflow's stereo config as it stands, the default
+``super_sampling`` 3 included (ops/stereo.py picks the branch).
 """
 
 from __future__ import annotations
