@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from vsc_tpu.config import StereoParams
+from vsc_tpu_torch.config import StereoParams
 from vsc_tpu_torch.ops import _cuda
 from vsc_tpu_torch.ops.attention_cuda import qkv_attention, qkv_attention_plain
 from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
@@ -199,3 +199,86 @@ def test_sbs_on_card_matches_cpu_plain(dev, super_sampling):
     got = generate_sbs(rgb.to(dev), depth.to(dev), params).cpu().int()
     diff = (got - ref).abs().float()
     assert float(diff.mean()) < 0.05 and int(diff.max()) <= 16
+
+
+@pytest.mark.parametrize("b,h,w,smoothing,pool", [
+    (2, 40, 260, 1.0, True), (1, 48, 250, 1.0, True),   # W/2 odd
+    (2, 36, 134, 2.5, True), (1, 12, 6, 3.9, False),    # radius 7, tiny
+])
+def test_bilateral_kernel_matches_plain(dev, b, h, w, smoothing, pool):
+    from vsc_tpu_torch.ops.bilateral_cuda import (bilateral_pool_planar,
+                                                  bilateral_pool_plain)
+    eye4 = _eye4(b, h, w, 15, dev)
+    before = _cuda.LAUNCHES["bilateral"]
+    filt, q = bilateral_pool_planar(eye4, smoothing, pool)
+    assert _cuda.LAUNCHES["bilateral"] == before + 1
+    filt_p, q_p = bilateral_pool_plain(eye4, smoothing, pool)
+    diff = (filt[:3].int() - filt_p[:3].int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+    assert torch.equal(filt[3], eye4[3])
+    assert (q is None) == (not pool)
+    if pool:
+        assert torch.equal(q, q_p)
+
+
+@pytest.mark.parametrize("smoothing", [1.0, 2.5])
+def test_split_postprocess_equals_fused_on_card(dev, smoothing):
+    from vsc_tpu_torch.ops.bilateral_cuda import bilateral_pool_planar
+    from vsc_tpu_torch.ops.inpaint import _pyramid_fill_planar_coarse
+    eye4 = _eye4(2, 40, 260, 16, dev)
+    eye4[3, :, :, :3] = 0        # holes along the left and right borders
+    eye4[3, :, :, -3:] = 0
+    eye4[:3] *= eye4[3][None]
+    smooth_q = _pyramid_fill_planar_coarse(eye4)
+    filt, quarter = bilateral_pool_planar(eye4, smoothing)
+    assert torch.equal(_pyramid_fill_planar_coarse(None, quarter4=quarter),
+                       smooth_q)
+    assert torch.equal(postprocess_eye(filt, smooth_q, 0.0),
+                       postprocess_eye(eye4, smooth_q, smoothing))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,o,bias", [
+    (2, 128, 8, 16, 128, False), (1, 256, 16, 8, 128, True),   # C != O
+    (1, 128, 24, 24, 256, False), (3, 32, 5, 4, 64, True),     # ragged P
+])
+def test_deconv_kernel_matches_plain(dev, dtype, n, c, h, w, o, bias):
+    from vsc_tpu_torch.ops.deconv_cuda import deconv2x2, deconv2x2_plain
+    g = torch.Generator(dev).manual_seed(17)
+    x = torch.randn((n, c, h, w), generator=g, device=dev).to(dtype)
+    wt = (0.1 * torch.randn((c, o, 2, 2), generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((o,), generator=g, device=dev)).to(
+        dtype) if bias else None
+    before = _cuda.LAUNCHES["deconv"]
+    got = deconv2x2(x, wt, b)
+    assert _cuda.LAUNCHES["deconv"] == before + 1
+    want = deconv2x2_plain(x, wt, b)
+    # f32: sums of <= 256 products in another order; bf16: the same sum
+    # rounded once to bf16 (8 bits): one step of the output's bf16 grid
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(
+        rtol=8e-3, atol=1e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,Dh", [(2, 37, 4, 16), (1, 77, 2, 80),
+                                      (1, 129, 2, 128), (3, 64, 3, 32),
+                                      (1, 1, 1, 48)])
+def test_split_attention_kernel_matches_plain(dev, dtype, B, T, H, Dh):
+    from vsc_tpu_torch.ops.attention_cuda import (short_seq_attention,
+                                                  short_seq_attention_plain)
+    g = torch.Generator(dev).manual_seed(18)
+    qkv = torch.randn((B, T, 3 * H * Dh), generator=g, device=dev).to(dtype)
+    q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+    scale = Dh ** -0.5
+    before = _cuda.LAUNCHES["attention_split"]
+    got = short_seq_attention(q, k, v, scale).float()
+    assert _cuda.LAUNCHES["attention_split"] == before + 1
+    want = short_seq_attention_plain(q, k, v, scale).float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+    else:    # the qkv kernel's bounds (test_attention_kernel_matches_plain)
+        assert float(diff.max()) <= 8e-3
+        assert float(diff.mean()) <= 1e-5

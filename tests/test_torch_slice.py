@@ -110,7 +110,8 @@ def test_render_sbs_matches_jax_kernel_path(tmp_path, monkeypatch,
 
 @pytest.fixture()
 def media_workflow(request):
-    from vsc_tpu.native import vscmedia_path
+    # the port's CLI runs the port's own copy of the media engine
+    from vsc_tpu_torch.native import vscmedia_path
     if vscmedia_path() is None:
         pytest.skip("native media engine unavailable")
     from vsc_tpu.config import load_config, save_config

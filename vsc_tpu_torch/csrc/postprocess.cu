@@ -8,7 +8,10 @@
 //   (see the docstring of ops/postprocess_cuda.py for the five stages).
 //   Weights come from the host in the plain version's order and every
 //   accumulation runs in that order with unfused IEEE operations, so the
-//   kernel rounds like the plain PyTorch version.
+//   kernel rounds like the plain PyTorch version. A margin pixel takes the
+//   bilateral of the image pixel it reflects (csrc/bilateral.cuh, shared
+//   with the split route's csrc/bilateral.cu), so the split route, which
+//   reflects the filtered image, equals this one bit for bit.
 // Form: a short chain of simple kernels instead of one fused tile kernel:
 //   prep (bilateral + dilated hole mask + initial known set, over image and
 //   margin), one launch per frontier sweep (ping-pong buffers), and finish
@@ -24,11 +27,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bilateral.cuh"
+
 namespace {
 
+using vsc::reflect101;
+
 constexpr int kThreads = 256;
-constexpr int kMaxRb = 7;                         // d <= 15
-constexpr int kMaxBil = (2 * kMaxRb + 1) * (2 * kMaxRb + 1);
+constexpr int kMaxRb = vsc::kMaxBilRadius;
 constexpr int kFillR = 2;
 constexpr int kSweeps = 3;                        // SWEEPS in the wrapper
 constexpr int kPolishR = 3;
@@ -36,25 +42,17 @@ constexpr int kMaxFill = (2 * kFillR + 1) * (2 * kFillR + 1);
 constexpr int kMaxPolish = (2 * kPolishR + 1) * (2 * kPolishR + 1);
 
 struct Offsets {
-  int nb, nf, np;
-  signed char bdy[kMaxBil], bdx[kMaxBil];
+  int nf, np;
   signed char fdy[kMaxFill], fdx[kMaxFill];
   signed char pdy[kMaxPolish], pdx[kMaxPolish];
-  float bw[kMaxBil], fw[kMaxFill], pw[kMaxPolish];
-  float wsum, inv2sc;
+  float fw[kMaxFill], pw[kMaxPolish];
+  float wsum;
+  vsc::BilateralTaps bil;
 };
 
 struct Geom {
   int B, H, W, Hq, Wq, M, Hd, Wd, rb;
 };
-
-__device__ __forceinline__ int reflect101(int i, int n) {
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  i %= period;
-  if (i < 0) i += period;
-  return i < n ? i : period - i;
-}
 
 __device__ __forceinline__ bool in_image(const Geom& g, int yd, int xd) {
   const int y = yd - g.M, x = xd - g.M;
@@ -78,31 +76,12 @@ __global__ void prep_kernel(const uint8_t* __restrict__ eye4, Geom g,
   const uint8_t* base = eye4 + (size_t)b * g.H * g.W;
   const int y = yd - g.M, x = xd - g.M;
   const int ry = reflect101(y, g.H), rx = reflect101(x, g.W);
-  float c[3];
-  for (int k = 0; k < 3; ++k)
-    c[k] = (float)base[k * plane + (size_t)ry * g.W + rx];
-  float out[3] = {c[0], c[1], c[2]};
+  float out[3];
   if (g.rb > 0) {
-    float num[3] = {c[0], c[1], c[2]};
-    float den = 1.0f;
-    for (int t = 0; t < o.nb; ++t) {
-      const int sy = reflect101(y + o.bdy[t], g.H);
-      const int sx = reflect101(x + o.bdx[t], g.W);
-      float sh[3];
-      for (int k = 0; k < 3; ++k)
-        sh[k] = (float)base[k * plane + (size_t)sy * g.W + sx];
-      float cd = __fadd_rn(__fadd_rn(fabsf(__fsub_rn(sh[0], c[0])),
-                                     fabsf(__fsub_rn(sh[1], c[1]))),
-                           fabsf(__fsub_rn(sh[2], c[2])));
-      const float wgt =
-          __fmul_rn(o.bw[t], expf(__fmul_rn(o.inv2sc, __fmul_rn(cd, cd))));
-      for (int k = 0; k < 3; ++k)
-        num[k] = __fadd_rn(num[k], __fmul_rn(wgt, sh[k]));
-      den = __fadd_rn(den, wgt);
-    }
+    vsc::bilateral_px(base, plane, g.H, g.W, ry, rx, o.bil, out);
+  } else {
     for (int k = 0; k < 3; ++k)
-      out[k] = floorf(fminf(fmaxf(rintf(__fdiv_rn(num[k], den)), 0.0f),
-                            255.0f));
+      out[k] = (float)base[k * plane + (size_t)ry * g.W + rx];
   }
   // 3x3 dilation of the in-image holes
   bool hole = false;
@@ -244,14 +223,13 @@ extern "C" int vsc_postprocess(const uint8_t* eye4, const float* smooth_q,
   Offsets o = {};
   disc(kFillR, kFillR * kFillR + 1, &o.nf, o.fdy, o.fdx);
   disc(kPolishR, kPolishR * kPolishR + 1, &o.np, o.pdy, o.pdx);
-  disc(rb, rb * rb, &o.nb, o.bdy, o.bdx);
-  if (rb == 0) o.nb = 0;
+  vsc::bilateral_disc(rb, &o.bil);
   int t = 0;
   for (int j = 0; j < o.nf; ++j) o.fw[j] = tables[t++];
   for (int j = 0; j < o.np; ++j) o.pw[j] = tables[t++];
   o.wsum = tables[t++];
-  o.inv2sc = tables[t++];
-  for (int j = 0; j < o.nb; ++j) o.bw[j] = tables[t++];
+  o.bil.inv2sc = tables[t++];
+  for (int j = 0; j < o.bil.n; ++j) o.bil.w[j] = tables[t++];
   Geom g = {B, H, W, Hq, Wq, M, H + 2 * M, W + 2 * M, rb};
   cudaStream_t s = (cudaStream_t)stream;
   const size_t nd = (size_t)B * g.Hd * g.Wd;

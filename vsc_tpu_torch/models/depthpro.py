@@ -20,19 +20,28 @@ names of Apple's ``depth_pro.pt`` as ``vsc_tpu/models/convert.py``'s
 The coarsest fusion block has no skip input, so (as in the JAX parameter
 tree) it has no ``resnet1``. Tensors are NCHW inside; ``DepthPro.forward``
 takes the JAX package's [B, S, S, 3] layout. Convolutions are
-``F.conv2d`` / ``F.conv_transpose2d`` (the JAX package leaves them to XLA).
+``F.conv2d`` / ``F.conv_transpose2d`` (the JAX package leaves them to XLA),
+except that ``VSC_TPU_PALLAS_DECONV=1`` sends every ``ConvT2x2`` site the
+guard ``deconv2x2_supported`` accepts to the deconv kernel
+(ops/deconv_cuda.py), as the JAX module does at
+``vsc_tpu/models/depthpro.py:200-220``; the route is off by default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
 import torch
 from torch import nn
 
 from vsc_tpu_torch.models.vit import ViT, ViTConfig
+from vsc_tpu_torch.ops.deconv_cuda import deconv2x2, deconv2x2_supported
 
-__all__ = ["DepthProConfig", "DepthPro"]
+__all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV"]
+
+DECONV_ENV = "VSC_TPU_PALLAS_DECONV"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +111,34 @@ def _conv(cin: int, cout: int, k: int, bias: bool = True):
     return nn.Conv2d(cin, cout, k, stride=1, padding=k // 2, bias=bias)
 
 
+class ConvT2x2(nn.Module):
+    """ConvTranspose 2x2 / stride 2 / no padding with ``nn.ConvTranspose2d``'s
+    parameters (``weight`` [Cin, Cout, 2, 2], optional ``bias`` [Cout]), so
+    checkpoints and models/convert.py carry across unchanged. cuDNN's
+    transposed convolution by default; the deconv kernel under
+    ``VSC_TPU_PALLAS_DECONV=1`` where the guard accepts the input."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, 2, 2))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        # nn.ConvTranspose2d's default init (models are re-drawn by
+        # init_flax_like or loaded from a checkpoint)
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        if self.bias is not None:
+            bound = 1.0 / math.sqrt(cout * 4)
+            nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x):
+        if (os.environ.get(DECONV_ENV, "0") == "1"
+                and deconv2x2_supported(x, self.weight.shape[1])):
+            return deconv2x2(x.contiguous(), self.weight, self.bias)
+        return nn.functional.conv_transpose2d(x, self.weight, self.bias,
+                                              stride=2)
+
+
 def _convT(cin: int, cout: int, bias: bool = False):
-    return nn.ConvTranspose2d(cin, cout, 2, stride=2, padding=0, bias=bias)
+    return ConvT2x2(cin, cout, bias=bias)
 
 
 def _proj_upsample(cin: int, dim_out: int, n_up: int, dim_int=None):

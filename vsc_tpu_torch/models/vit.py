@@ -9,9 +9,12 @@ ViT (the keys of Apple's ``depth_pro.pt``): ``patch_embed.proj``,
 ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``.
 
 The fused qkv projection keeps PyTorch's [q | k | v] row order; the
-attention kernel (ops/attention_cuda.py) reads q, k and v out of it through
-strides. Matmuls are ``nn.Linear`` (the JAX package leaves them to XLA).
-The folded-LayerNorm and sequence-sharding variants of the JAX module are
+attention kernels (ops/attention_cuda.py) read q, k and v out of it through
+strides: the qkv kernel for bf16 at head dim 64, the split-q/k/v kernel for
+float32 (``VSC_TPU_DEPTH_DTYPE=float32``) and other head dims, as
+``attention_route`` decides (the JAX module's choice at
+``vsc_tpu/models/vit.py:185-221``). Matmuls are ``nn.Linear`` (the JAX
+package leaves them to XLA). The folded-LayerNorm and sequence-sharding variants of the JAX module are
 not ported.
 """
 
@@ -23,7 +26,8 @@ import math
 import torch
 from torch import nn
 
-from vsc_tpu_torch.ops.attention_cuda import qkv_attention
+from vsc_tpu_torch.ops.attention_cuda import (attention_route, qkv_attention,
+                                              short_seq_attention)
 
 __all__ = ["ViTConfig", "ViT", "init_flax_like"]
 
@@ -77,8 +81,14 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        out = qkv_attention(self.qkv(x).contiguous(), self.num_heads,
-                            self.scale)
+        qkv = self.qkv(x)
+        B, T, D3 = qkv.shape
+        H, Dh = self.num_heads, D3 // (3 * self.num_heads)
+        if attention_route(qkv.dtype, Dh) == "qkv":
+            out = qkv_attention(qkv.contiguous(), H, self.scale)
+        else:
+            q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+            out = short_seq_attention(q, k, v, self.scale).reshape(B, T, -1)
         return self.proj(out)
 
 
@@ -156,13 +166,14 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
     xavier-uniform for Linear and the patch conv, lecun-normal for other
     convs and transposed convs, zero biases, LayerNorm (1, 0), LayerScale at
     its init value, cls token 0, pos_embed N(0, 0.02)."""
+    from vsc_tpu_torch.models.depthpro import ConvT2x2
     for name, m in module.named_modules():
         if isinstance(m, nn.Linear) or (isinstance(m, nn.Conv2d)
                                         and name.endswith("patch_embed.proj")):
             nn.init.xavier_uniform_(m.weight, generator=generator)
         elif isinstance(m, nn.Conv2d):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
-        elif isinstance(m, nn.ConvTranspose2d):
+        elif isinstance(m, ConvT2x2):
             # flax kernel [kh, kw, I, O]: fan_in = kh * kw * I
             _lecun_normal_(m.weight, m.weight.shape[0] * m.weight[0, 0].numel(),
                            generator)

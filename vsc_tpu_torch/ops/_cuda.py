@@ -2,7 +2,8 @@
 CUDA kernel library: build, load, launch bookkeeping
 ====================================================
 
-All hand-written kernels live in ``vsc_tpu_torch/csrc/*.cu`` and compile
+All hand-written kernels live in ``vsc_tpu_torch/csrc/*.cu`` (device
+functions shared between sources in ``csrc/*.cuh``) and compile
 with ``nvcc`` (one process per source, all started together) into ONE shared
 library with a plain C interface, loaded via ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The build runs at first use into
@@ -34,7 +35,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vsc_tpu_torch"
 NVCC_TIMEOUT = 600.0
 
 LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
-            "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0}
+            "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
+            "bilateral": 0, "deconv": 0, "attention_split": 0}
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -73,6 +75,15 @@ _SIGNATURES = {
     # ratio, strength, out_h, out_w, out_u8, stream
     "vsc_finish": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _I, _P],
+    # eye4, out, quarter (or null), space weights(host), inv2sc, B, H, W,
+    # radius, stream
+    "vsc_bilateral_pool": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
+    # x, weight, bias (or null), out, N, C, H, W, O, bf16, stream
+    "vsc_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, T, heads, head dim, strides (batch, token, head) of
+    # q/k/v in elements, scale, bf16, stream
+    "vsc_split_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
+                            _I, _P],
 }
 
 
@@ -114,7 +125,7 @@ def _build() -> Path:
     """One nvcc per source, all started together, then one link."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256()
-    for p in sources:
+    for p in sources + sorted(_CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     tag = h.hexdigest()[:16]

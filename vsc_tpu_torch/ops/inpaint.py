@@ -149,7 +149,7 @@ def _push_pull_hw(img, msk, kmax: int = 1, below=None):
     return filled
 
 
-def _pyramid_fill_planar_coarse(eye4):
+def _pyramid_fill_planar_coarse(eye4, quarter4=None):
     """[4, B, H, W] uint8 (r, g, b, valid) eye stack -> the [3, B, ~H/4,
     ~W/4] float32 quarter-resolution push-pull estimate, in the plane-major
     layout the postprocess kernel reads. Equal to
@@ -158,10 +158,17 @@ def _pyramid_fill_planar_coarse(eye4):
     The structure the JAX package takes on the TPU: even H and W pool in
     the kernels (one 4x4 launch when both divide by 4, else 2x2 from u8 and
     2x2 on f32), odd ones in torch; torch glue pools on while a side
-    exceeds ``PYR_KMAX``; the pyramid kernel fills from there down."""
+    exceeds ``PYR_KMAX``; the pyramid kernel fills from there down.
+
+    ``quarter4``: the [4, B, H/4, ~W/4] float32 pooled (rgb * valid, valid)
+    stack already computed (the split route's bilateral kernel emits it,
+    ops/bilateral_cuda.py); the pools are skipped and ``eye4`` is unused."""
     from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
                                              avgpool4_eye4)
     from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
+    if quarter4 is not None:
+        return _push_pull_hw(quarter4[:3], quarter4[3], PYR_KMAX,
+                             pyramid_fill_below)
     H, W = eye4.shape[-2], eye4.shape[-1]
     if H % 4 == 0 and W % 4 == 0:
         x = avgpool4_eye4(eye4)

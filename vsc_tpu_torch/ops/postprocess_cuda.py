@@ -14,7 +14,10 @@ reflect-101 padded and the valid plane zero outside the image:
 
   1. bilateral (cv2 laws: d = max(5, min(int(4s), 15)), sigma_color 30,
      sigma_space 25s, L1 color distance, disc dy^2 + dx^2 <= r^2), then
-     floor(clip(round(.))); skipped when smoothing == 0;
+     floor(clip(round(.))), on the image (``bilateral_plain``); a margin
+     pixel takes the value of the image pixel it reflects, so the split
+     route (ops/bilateral_cuda.py, then this at smoothing 0) equals this
+     bit for bit; skipped when smoothing == 0;
   2. hole = 3x3 dilation of (not valid) inside the image; keep = not hole;
   3. up to SWEEPS = 3 radius-2 frontier sweeps (disc dy^2 + dx^2 <= r^2 + 1,
      1/hypot weights) from the kept in-image pixels; margin pixels take
@@ -39,7 +42,8 @@ import torch
 from vsc_tpu_torch.ops import _cuda
 from vsc_tpu_torch.ops.inpaint import disc_offsets
 
-__all__ = ["postprocess_eye", "postprocess_eye_plain", "bilateral_geometry"]
+__all__ = ["postprocess_eye", "postprocess_eye_plain", "bilateral_geometry",
+           "bilateral_plain", "bilateral_tables", "margin_chans"]
 
 SIGMA_COLOR = 30.0
 FILL_RADIUS = 2
@@ -65,9 +69,55 @@ def bilateral_geometry(smoothing: float):
     return r, offs
 
 
+def bilateral_tables(smoothing: float):
+    """(radius, space weights float32 in the disc's row-major order,
+    inv2sc) as the kernels take them from the host."""
+    rb, boffs = bilateral_geometry(smoothing)
+    return (rb, np.asarray([w for _, _, w in boffs], dtype=np.float32),
+            -0.5 / (SIGMA_COLOR * SIGMA_COLOR))
+
+
+def bilateral_plain(rgb, smoothing: float):
+    """[3, B, H, W] float32 (u8 values) -> the bilateral-filtered planes,
+    floor(clip(round(num / den), 0, 255)), reflect-101 borders; the
+    accumulation order the kernels' shared device function runs
+    (csrc/bilateral.cuh)."""
+    from vsc_tpu_torch.ops.filters import reflect_index
+    _, B, H, W = rgb.shape
+    dev = rgb.device
+    rb, boffs = bilateral_geometry(smoothing)
+    x = rgb.index_select(2, reflect_index(H, rb, rb, dev))
+    x = x.index_select(3, reflect_index(W, rb, rb, dev))
+    inv2sc = -0.5 / (SIGMA_COLOR * SIGMA_COLOR)
+    num = rgb + 0.0
+    den = torch.ones((B, H, W), dtype=torch.float32, device=dev)
+    for dy, dx, sw in boffs:
+        sh = x[..., rb + dy:rb + dy + H, rb + dx:rb + dx + W]
+        cdiff = (torch.abs(sh[0] - rgb[0]) + torch.abs(sh[1] - rgb[1])
+                 + torch.abs(sh[2] - rgb[2]))
+        wgt = sw * torch.exp(inv2sc * (cdiff * cdiff))
+        num = num + wgt * sh
+        den = den + wgt
+    return torch.floor(torch.clamp(torch.round(num / den), 0.0, 255.0))
+
+
 def _margin(smoothing: float) -> int:
     rb, _ = bilateral_geometry(smoothing)
     return rb + 1 + FILL_RADIUS * SWEEPS + POLISH_RADIUS
+
+
+def margin_chans(eye4, smoothing: float):
+    """Stage 1 over the image and its margin: [3, B, H + 2M, W + 2M]
+    float32, the bilateral of the image (none at smoothing 0) reflected
+    101 into the margin M = ``_margin(smoothing)``."""
+    from vsc_tpu_torch.ops.filters import reflect_index
+    H, W = eye4.shape[-2:]
+    M = _margin(smoothing)
+    chans = eye4[:3].to(torch.float32)
+    if smoothing > 0:
+        chans = bilateral_plain(chans, smoothing)
+    chans = chans.index_select(2, reflect_index(H, M, M, eye4.device))
+    return chans.index_select(3, reflect_index(W, M, M, eye4.device))
 
 
 def _shift(x, dy: int, dx: int):
@@ -81,33 +131,13 @@ def _shift(x, dy: int, dx: int):
 def postprocess_eye_plain(eye4, smooth_q, smoothing: float):
     """eye4 [4, B, H, W] uint8 (r, g, b, valid), smooth_q [3, B, Hq, Wq]
     float32 quarter-res estimate -> [3, B, H, W] uint8."""
-    from vsc_tpu_torch.ops.filters import reflect_index
     _, B, H, W = eye4.shape
     dev = eye4.device
-    rb, boffs = bilateral_geometry(smoothing)
     M = _margin(smoothing)
-    R = M + rb
-    x = eye4[:3].to(torch.float32)
-    x = x.index_select(2, reflect_index(H, R, R, dev))
-    x = x.index_select(3, reflect_index(W, R, R, dev))
     Hd, Wd = H + 2 * M, W + 2 * M
-    center = x[..., rb:rb + Hd, rb:rb + Wd]
 
-    # 1. bilateral over the image + margin
-    if smoothing > 0:
-        inv2sc = -0.5 / (SIGMA_COLOR * SIGMA_COLOR)
-        num = center + 0.0
-        den = torch.ones((B, Hd, Wd), dtype=torch.float32, device=dev)
-        for dy, dx, sw in boffs:
-            sh = x[..., rb + dy:rb + dy + Hd, rb + dx:rb + dx + Wd]
-            cdiff = (torch.abs(sh[0] - center[0]) + torch.abs(sh[1] - center[1])
-                     + torch.abs(sh[2] - center[2]))
-            wgt = sw * torch.exp(inv2sc * (cdiff * cdiff))
-            num = num + wgt * sh
-            den = den + wgt
-        chans = torch.floor(torch.clamp(torch.round(num / den), 0.0, 255.0))
-    else:
-        chans = center
+    # 1. bilateral on the image, then the margin reflects it
+    chans = margin_chans(eye4, smoothing)
 
     # 2. dilated hole mask, zero outside the image
     inimg = torch.zeros((Hd, Wd), dtype=torch.float32, device=dev)
@@ -172,15 +202,14 @@ def postprocess_eye(eye4, smooth_q, smoothing: float):
     Hq, Wq = smooth_q.shape[2:]
     if Hq <= (H - 1) // 4 or Wq <= (W - 1) // 4:
         raise ValueError("postprocess_eye: smooth_q does not cover the eye")
-    rb, boffs = bilateral_geometry(smoothing)
+    rb, space_w, inv2sc = bilateral_tables(smoothing)
     if rb > MAX_BILATERAL_RADIUS:
         raise ValueError(f"postprocess_eye: the kernel takes a bilateral "
                          f"radius <= {MAX_BILATERAL_RADIUS}, got {rb}")
-    tables = np.asarray(
+    tables = np.concatenate([np.asarray(
         [w for _, _, w in _FILL_OFFS] + [w for _, _, w in _POLISH_OFFS]
-        + [sum(w for _, _, w in _POLISH_OFFS),
-           -0.5 / (SIGMA_COLOR * SIGMA_COLOR)]
-        + [w for _, _, w in boffs], dtype=np.float32)
+        + [sum(w for _, _, w in _POLISH_OFFS), inv2sc], dtype=np.float32),
+        space_w])
     M = _margin(smoothing)
     Hd, Wd = H + 2 * M, W + 2 * M
     dev = eye4.device

@@ -32,13 +32,25 @@ Two branches, chosen as the JAX package chooses them on the TPU:
   compat (``:353-389``): everything else (``super_sampling`` 1, non-integer
     ratios, tiny frames), channel-last, one eye at a time; the finish
     kernel's f32 entry at integer ratios.
+
+The planar-u8 branch honours the JAX package's split-bilateral opt-in
+(``VSC_TPU_PP_SPLIT=1``, off by default, ``vsc_tpu/ops/stereo.py:304-332``)
+under the same guard: the bilateral kernel (ops/bilateral_cuda.py) filters
+the pair and emits the quarter pool stack, the pyramid starts from that
+stack (or from the pair's own pools under ``VSC_TPU_BF_POOL=0``), and the
+postprocess runs at smoothing 0. Its SBS equals the default route's bit for
+bit.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from vsc_tpu.config.stereo_params import StereoParams
+from vsc_tpu_torch.config.stereo_params import StereoParams
+from vsc_tpu_torch.ops.bilateral_cuda import (bilateral_pool_planar,
+                                              bilateral_pool_supported)
 from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes
 from vsc_tpu_torch.ops.filters import unsharp_mask
 from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
@@ -207,8 +219,19 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
             rgb_st.contiguous(), depth_n.contiguous(), params.max_disparity)
         pair = torch.cat([eye_l, eye_r], dim=1)
         del eye_l, eye_r
-        smooth_q = _pyramid_fill_planar_coarse(pair)
-        out = postprocess_eye(pair, smooth_q, params.artifact_smoothing)
+        split = (os.environ.get("VSC_TPU_PP_SPLIT", "0") == "1"
+                 and bilateral_pool_supported(up_h, up_w,
+                                              params.artifact_smoothing))
+        if split:
+            pool_in = os.environ.get("VSC_TPU_BF_POOL", "1") != "0"
+            filt, quarter4 = bilateral_pool_planar(
+                pair, params.artifact_smoothing, pool=pool_in)
+            smooth_q = _pyramid_fill_planar_coarse(pair, quarter4=quarter4)
+            del pair
+            out = postprocess_eye(filt, smooth_q, 0.0)
+        else:
+            smooth_q = _pyramid_fill_planar_coarse(pair)
+            out = postprocess_eye(pair, smooth_q, params.artifact_smoothing)
         fin = sharpen_downscale_planar(out, int(ratio), float(params.sharpen),
                                        H, W, crop_w, (lo, ro))
         sbs = torch.cat([fin[:, :B], fin[:, B:]], dim=3)   # [3, B, H, 2W]

@@ -15,27 +15,49 @@ JAX parameter tree (``vsc_tpu.models.convert.save_params``), carried
 across strictly by ``models/convert.py``.
 
 Compute dtype: bfloat16 on CUDA, float32 on the CPU (the JAX rule: the
-accelerator's native inference precision, f32 elsewhere); the attention
-kernel takes bfloat16 only.
+accelerator's native inference precision, f32 elsewhere), unless
+``VSC_TPU_DEPTH_DTYPE`` says otherwise, read as the JAX package reads it
+(``bfloat16`` -> bf16, any other value -> f32). The ViT attention picks its
+kernel by dtype and head dim (``models/vit.py``), so f32 runs on the card.
+
+Entry points run on the card unless the caller asks for the CPU: ``device``
+None means ``vsc_tpu_torch.default_device()``, which raises without one.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-__all__ = ["build_depth_fn", "build_depthpro", "CHECKPOINT_ENV"]
+__all__ = ["build_depth_fn", "build_depthpro", "depth_dtype",
+           "CHECKPOINT_ENV", "DTYPE_ENV"]
 
 CHECKPOINT_ENV = "VSC_TPU_DEPTH_CHECKPOINT"
+DTYPE_ENV = "VSC_TPU_DEPTH_DTYPE"
 
 
-def build_depthpro(input_size: int, device, *, cfg=None,
+def depth_dtype(device) -> torch.dtype:
+    """The depth model's compute dtype on ``device``: ``VSC_TPU_DEPTH_DTYPE``
+    when set (``bfloat16`` -> bf16, anything else -> f32, as
+    ``vsc_tpu/pipeline/depth_map_generator.py`` reads it), else bf16 on CUDA
+    and f32 on the CPU."""
+    want = os.environ.get(DTYPE_ENV, "bfloat16" if torch.device(device).type
+                          == "cuda" else "float32")
+    return torch.bfloat16 if want == "bfloat16" else torch.float32
+
+
+def build_depthpro(input_size: int, device=None, *, cfg=None,
                    checkpoint: str | None = None, seed: int = 0):
-    """A DepthPro on ``device`` in eval mode (bf16 on CUDA, f32 on the CPU):
-    production width at ``input_size`` unless ``cfg`` is given; weights from
-    ``checkpoint`` (a JAX npz) or drawn from
+    """A DepthPro on ``device`` (None: ``default_device()``) in eval mode,
+    in ``depth_dtype(device)``: production width at ``input_size`` unless
+    ``cfg`` is given; weights from ``checkpoint`` (a JAX npz) or drawn from
     ``torch.Generator(device).manual_seed(seed)``."""
+    from vsc_tpu_torch import default_device
     from vsc_tpu_torch.models import (DepthPro, DepthProConfig, ViTConfig,
                                       init_flax_like)
+    if device is None:
+        device = default_device()
     if cfg is None:
         if input_size % 512 != 0:
             raise ValueError(
@@ -56,17 +78,21 @@ def build_depthpro(input_size: int, device, *, cfg=None,
         load_jax_npz(checkpoint, model)
     else:
         init_flax_like(model, torch.Generator(device).manual_seed(seed))
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return model.to(dtype).eval()
+    return model.to(depth_dtype(device)).eval()
 
 
 def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
                    use_16bit: bool, checkpoint: str | None = None, *,
-                   device="cpu", model_cfg=None, seed: int = 0):
+                   device=None, model_cfg=None, seed: int = 0):
     """Returns f(u8 frames [B, H, W, 3] tensor on ``device``) -> quantized
     depth [B, out_h, out_w] (uint8, or uint16 with ``use_16bit``).
+    ``device`` None means ``default_device()`` (the card, or an error).
     ``model_cfg`` overrides the DepthPro config (tests run a small one)."""
+    from vsc_tpu_torch import default_device
     from vsc_tpu_torch.ops.resize import resize
+
+    if device is None:
+        device = default_device()
 
     if model_name == "depthpro":
         if model_cfg is not None:

@@ -6,8 +6,12 @@ Port of ``vsc_tpu/pipeline/stream_convert.py``: decode -> depth (DepthPro
 or the stub) -> SBS -> x265 chunk encode in one process with no PNG
 intermediates, with the same flags, chunk naming (1-frame overlap after the
 first chunk), chunk-granular resume, free-space rules and exit-100
-accelerator-failure contract. Decoding, encoding and concatenation reuse
-``vsc_tpu.io.media`` and ``vsc_tpu.pipeline.video_concatenator`` unchanged.
+accelerator-failure contract. Decoding, encoding and concatenation run on
+the port's own copies of the JAX package's framework-free layers
+(``vsc_tpu_torch.io``, ``config``, ``pipeline.video_concatenator``).
+
+It runs on the card unless the caller asks for the CPU (``--cpu``, or
+``device="cpu"`` to ``run``); with no card and no such request it raises.
 
 The device work of one batch is ``render_sbs`` (frames in, SBS frames out),
 callable without the media engine::
@@ -25,7 +29,8 @@ import os
 import sys
 from pathlib import Path
 
-from vsc_tpu.config import ConfigError, StereoParams, get_path, load_config
+from vsc_tpu_torch.config import (ConfigError, StereoParams, get_path,
+                                  load_config)
 
 __all__ = ["render_sbs", "run", "main", "AccelFailure"]
 
@@ -50,7 +55,7 @@ def render_sbs(rgb_u8, depth_fn, params: StereoParams):
 def _free_space_cleanup(workflow_path: Path, config: dict, upto: int) -> None:
     """The step pipeline's free_space semantics for frames <= upto
     (intermediates that encoded chunks now supersede)."""
-    from vsc_tpu.utils.frame_utils import extract_frame_number
+    from vsc_tpu_torch.utils.frame_utils import extract_frame_number
     fs = config.get("free_space", {})
     sbs_mode = fs.get("sbs_generator", "none")
     chunk_mode = fs.get("chunk_generator", "none")
@@ -77,9 +82,9 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     import torch
     from tqdm import tqdm
 
-    from vsc_tpu.io.media import RawFrameSink, decode_frames
-    from vsc_tpu.io.probe import probe_video
-    from vsc_tpu.pipeline.chunk_generator import find_chunks
+    from vsc_tpu_torch.io.media import RawFrameSink, decode_frames
+    from vsc_tpu_torch.io.probe import probe_video
+    from vsc_tpu_torch.pipeline.chunk_generator import find_chunks
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.parallel import health
     from vsc_tpu_torch.pipeline import depth_map_generator
@@ -224,7 +229,7 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
         print(f"Encoded up to frame {frame_no}.")
 
     if concat:
-        from vsc_tpu.pipeline import video_concatenator
+        from vsc_tpu_torch.pipeline import video_concatenator
         return video_concatenator.run(workflow_path, config)
     return True
 
