@@ -17,8 +17,11 @@ Drives the port's streaming main path on the card and checks it:
      that computes the same function where there is one (SDPA,
      conv_transpose2d) and the least time the card could take (bytes at
      3.35 TB/s or operations at the peak for their type, whichever is
-     larger); then the super_sampling 3 kernels again at 2160 x 3840 and
-     the SBS stage at that size;
+     larger; the postprocess's operations include the fill and polish its
+     pair's holes need, and the share of its tiles that take the hole path
+     must lie strictly between 0 and 1, so both paths are checked); then
+     the super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
+     that size;
   3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
      SBS) on 1080p batches at ``StereoParams()`` defaults (super_sampling 3,
      the planar-u8 branch), then a shorter run at super_sampling 1 (the
@@ -113,6 +116,36 @@ def bilateral_ops(smoothing: float, pixels: int) -> float:
     return pixels * (20.0 * len(taps) + 6.0)
 
 
+def postprocess_ops(eye4, smoothing: float) -> float:
+    """The postprocess's f32 operations on these inputs: the bilateral on
+    every pixel, and on the hole pixels (in-image pixels within 1 of a
+    pixel that is not valid) what the fill needs: each sweep on the hole
+    pixels still unknown at its start (~8 operations per tap of the radius-2
+    disc, ~6 for the update), the polish on every hole pixel (2 per tap and
+    channel, one division)."""
+    import torch
+    import torch.nn.functional as F
+    from vsc_tpu_torch.ops.inpaint import disc_offsets
+    from vsc_tpu_torch.ops.postprocess_cuda import (FILL_RADIUS,
+                                                    POLISH_RADIUS, SWEEPS)
+    fill, polish = disc_offsets(FILL_RADIUS), disc_offsets(POLISH_RADIUS)
+    hole = F.max_pool2d((eye4[3] == 0).float()[:, None], 3, stride=1,
+                        padding=1)
+    known = 1.0 - hole
+    r = FILL_RADIUS
+    kernel = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=eye4.device)
+    for dy, dx, _ in fill:
+        kernel[0, 0, r + dy, r + dx] = 1.0
+    swept = 0.0
+    for _ in range(SWEEPS):
+        swept += float((known == 0).sum())
+        known = torch.maximum(known, (F.conv2d(known, kernel, padding=r)
+                                      > 0).float())
+    return (bilateral_ops(smoothing, eye4[0].numel())
+            + swept * (8.0 * len(fill) + 6.0)
+            + float(hole.sum()) * 3 * (2.0 * len(polish) + 1.0))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -146,7 +179,7 @@ GROUPS = [
     ("split attention kernel", r"split_attention_kernel"),
     ("deconv kernel", r"deconv2x2_kernel"),
     ("SBS kernels (blur, warp, postprocess, bilateral)",
-     r"::(blur|warp|prep|sweep|finish|bilateral|quarter)_kernel[<(]"),
+     r"::(blur|warp|postprocess_tile|bilateral|quarter)_kernel[<(]"),
     ("super-sampling kernels (upsample, pool, pyramid, finish)",
      r"::(upsample|pool_eye4|pool2|pyramid|sharpen_downscale)_kernel[<(]"),
     ("convolutions (cuDNN)", CONV_GROUP),
@@ -269,7 +302,41 @@ def phase_card_and_build():
     build_s = time.perf_counter() - t0
     log(f"phase 1: kernels built and loaded in {build_s:.1f} s "
         f"(nvcc {', '.join(f'{s:.1f}' for s in _cuda.BUILD_SECONDS) or 'cached'} s)")
+    log_ptxas(_cuda.PTXAS_LOG)
     return card
+
+
+def kernel_name(mangled: str) -> str:
+    """The last identifier of a mangled nested name (_ZN<len><id>...)."""
+    pos, name = mangled.find("_ZN") + 3, mangled
+    while pos > 2 and pos < len(mangled) and mangled[pos].isdigit():
+        end = pos
+        while mangled[end].isdigit():
+            end += 1
+        name = mangled[end:end + int(mangled[pos:end])]
+        pos = end + int(mangled[pos:end])
+    return name
+
+
+def log_ptxas(path: Path) -> None:
+    """Registers and spill stores of each kernel (all its template
+    instances) from the build's nvcc -Xptxas -v output."""
+    import re
+    if not path.exists():
+        log("phase 1: no ptxas log (library built by an earlier run)")
+        return
+    regs, spills, name = {}, {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            spills[name] = max(spills.get(name, 0), int(m.group(1)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            regs.setdefault(name, []).append(int(m.group(1)))
+    log("phase 1: ptxas (sm_90a): " + "; ".join(
+        f"{k} {min(v)}{'' if min(v) == max(v) else f'-{max(v)}'} registers, "
+        f"{spills.get(k, 0)} B spill" for k, v in sorted(regs.items())))
 
 
 def phase_kernels(B: int):
@@ -401,7 +468,9 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
     from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
                                              avgpool2_plain,
                                              avgpool_eye4_plain)
-    from vsc_tpu_torch.ops.postprocess_cuda import (postprocess_eye,
+    from vsc_tpu_torch.ops.postprocess_cuda import (TILE_H, TILE_W,
+                                                    hole_tiles,
+                                                    postprocess_eye,
                                                     postprocess_eye_plain)
     from vsc_tpu_torch.ops.pyramid_cuda import (pyramid_fill_below,
                                                 pyramid_fill_below_plain)
@@ -552,15 +621,21 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
     d = (out.int() - postprocess_eye_plain(*pp_args).int()).abs()
     err, frac = float(d.max()), float((d > 0).float().mean())
     del d
+    share = float(hole_tiles(pair[3]).float().mean())
     res["postprocess"] = dict(
-        max_abs_err=err, frac_differing=frac,
+        max_abs_err=err, frac_differing=frac, hole_tile_share=share,
         bound="<= 1 code on < 0.1% of pixels",
         ms=time_ms(lambda: postprocess_eye(*pp_args)),
         plain_ms=time_ms(lambda: postprocess_eye_plain(*pp_args), reps=2),
-        # the bilateral on every pixel (the hole fill's work depends on the
-        # holes and is left out: a lower bound)
+        # the bilateral on every pixel, the fill and polish on the holes
         **least_time(nbytes(pair, smooth_q, out),
-                     f32=bilateral_ops(sm, pair[0].numel())))
+                     f32=postprocess_ops(pair, sm)))
+    log(f"phase 2: postprocess ({H}x{W}, super_sampling 3): "
+        f"{100 * share:.1f} % of its {TILE_H} x {TILE_W} tiles take the hole "
+        f"path, {100 * float((pair[3] == 0).float().mean()):.2f} % of "
+        f"pixels are holes")
+    check(0.0 < share < 1.0, f"the pair's tiles do not take both paths: "
+                             f"hole-tile share {share}")
     check(err <= 1 and frac < 1e-3, f"postprocess disagrees: {err} {frac}")
     del pair, pp_args
     args = (out, f, float(p.sharpen), H, W, crop_w, (lo, ro))
@@ -1017,6 +1092,7 @@ def phase_slice(B: int, batches: int, card: str):
             f"{per_frame[0]:.1f} / {per_frame[len(per_frame) // 2]:.1f} / "
             f"{per_frame[-1]:.1f} ms/frame min / median / max) on {card}")
     log(f"phase 3: peak device memory at the defaults {peak:.2f} GiB")
+    pair_holes(frames[0], depth, params)
     log_profile("one default batch",
                 lambda: render_sbs(frames[-1], depth_fn, params),
                 group=CONV_GROUP)
@@ -1026,6 +1102,32 @@ def phase_slice(B: int, batches: int, card: str):
     launches.update(phase_routes(B, depth_fn, frames, params, t_depth, t_sbs,
                                  card))
     return launches
+
+
+def pair_holes(frame, depth, params) -> None:
+    """The postprocess on the default path's own pair (one batch, the
+    model's depth): the share of its tiles that take the hole path, and
+    its time there (the phase-2 pair comes from a smooth synthetic depth)."""
+    from vsc_tpu_torch.ops import stereo
+    from vsc_tpu_torch.ops.postprocess_cuda import (TILE_H, TILE_W,
+                                                    hole_tiles)
+    seen = []
+    real = stereo.postprocess_eye
+
+    def recording(eye4, smooth_q, smoothing):
+        seen.append((eye4, smooth_q, smoothing))
+        return real(eye4, smooth_q, smoothing)
+    stereo.postprocess_eye = recording
+    try:
+        stereo.generate_sbs(frame, depth, params)
+    finally:
+        stereo.postprocess_eye = real
+    eye4, smooth_q, smoothing = seen[0]
+    log(f"phase 3: the default path's pair {tuple(eye4.shape)}: "
+        f"{100 * float(hole_tiles(eye4[3]).float().mean()):.1f} % of its "
+        f"{TILE_H} x {TILE_W} tiles take the hole path, "
+        f"{100 * float((eye4[3] == 0).float().mean()):.2f} % of pixels are "
+        f"holes; postprocess {time_ms(lambda: real(*seen[0])):.3f} ms")
 
 
 def phase_cli():

@@ -21,7 +21,9 @@ from vsc_tpu_torch.ops.inpaint import _pyramid_fill
 from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
                                          avgpool2_plain, avgpool4_eye4,
                                          avgpool_eye4_plain)
-from vsc_tpu_torch.ops.postprocess_cuda import (postprocess_eye,
+from vsc_tpu_torch.ops.postprocess_cuda import (TILE_H, TILE_W,
+                                                bilateral_plain, hole_tiles,
+                                                postprocess_eye,
                                                 postprocess_eye_plain)
 from vsc_tpu_torch.ops.pyramid_cuda import (pyramid_fill_below,
                                             pyramid_fill_below_plain)
@@ -99,6 +101,86 @@ def test_postprocess_kernel_matches_plain(dev, b, h, w, smoothing, holes):
     assert float((diff > 0).float().mean()) < 1e-3
 
 
+def _pp_case(eye4, smoothing, dev):
+    """The kernel against the plain version on eye4 [4, B, H, W] u8 (colors
+    zeroed where not valid, as the warp leaves them), one launch counted."""
+    eye4 = eye4.to(dev)
+    eye4[:3] *= (eye4[3] > 0)[None]
+    img = torch.movedim(eye4[:3], 0, -1).float()
+    valid = eye4[3].float()
+    smooth_q = _pyramid_fill(img, valid[..., None], coarse_factor=4,
+                             return_coarse=True).permute(3, 0, 1, 2)
+    smooth_q = smooth_q.contiguous()
+    before = _cuda.LAUNCHES["postprocess"]
+    got = postprocess_eye(eye4, smooth_q, smoothing)
+    assert _cuda.LAUNCHES["postprocess"] == before + 1
+    want = postprocess_eye_plain(eye4, smooth_q, smoothing)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+    return eye4, got
+
+
+def _pp_frame(b, h, w, seed, dev):
+    rgb = torch.floor(_rand((3, b, h, w), seed, dev) * 256)
+    return torch.cat([rgb, torch.ones((1, b, h, w), device=dev)]).to(
+        torch.uint8)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 1.0, 4.0])
+def test_postprocess_kernel_without_holes_is_the_bilateral(dev, smoothing):
+    eye4 = _pp_frame(2, 2 * TILE_H + 5, 3 * TILE_W - 7, 20, dev)
+    assert not bool(hole_tiles(eye4[3]).any())      # every tile: fast path
+    eye4, got = _pp_case(eye4, smoothing, dev)
+    want = eye4[:3].float()
+    if smoothing > 0:
+        want = bilateral_plain(want, smoothing)
+    assert torch.equal(got, want.to(torch.uint8))
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 1.0, 4.0])
+@pytest.mark.parametrize("layout", ["clustered", "tile_edges", "all_holes"])
+def test_postprocess_kernel_hole_layouts(dev, smoothing, layout):
+    B, H, W = 2, 3 * TILE_H + 11, 4 * TILE_W + 3   # not multiples of a tile
+    eye4 = _pp_frame(B, H, W, 21, dev)
+    valid = eye4[3]
+    if layout == "clustered":
+        # two blobs of holes, a near-vertical streak; most tiles stay clean
+        spots = _rand((B, H, W), 22, dev) > 0.6
+        valid[:, 10:40, 20:31] = 0
+        valid[:, TILE_H + 3:2 * TILE_H, 2 * TILE_W + 1:2 * TILE_W + 3] = 0
+        valid[:, 60:90, 70:76] *= spots[:, 60:90, 70:76] == 0
+    elif layout == "tile_edges":
+        # on the image's first and last rows and columns and on both sides
+        # of tile borders
+        valid[:, 0, ::3] = 0
+        valid[:, H - 1, 1::4] = 0
+        valid[:, ::5, 0] = 0
+        valid[:, 2::3, W - 1] = 0
+        valid[:, TILE_H - 1:TILE_H + 1, 5:9] = 0
+        valid[:, 2 * TILE_H, 40:44] = 0
+        valid[:, 30:36, TILE_W - 1] = 0
+        valid[:, 70:75, 2 * TILE_W] = 0
+    else:
+        valid.zero_()
+    tiles = hole_tiles(valid)
+    if layout == "all_holes":
+        assert bool(tiles.all())
+    else:
+        assert bool(tiles.any()) and not bool(tiles.all())
+    _pp_case(eye4, smoothing, dev)
+
+
+@pytest.mark.parametrize("b,h,w,smoothing", [
+    (1, 7, 5, 1.0), (1, 1, 40, 4.0), (2, 50, 1, 0.0),   # smaller than a tile
+    (1, TILE_H + 1, TILE_W + 1, 4.0),                   # one-pixel tiles
+])
+def test_postprocess_kernel_ragged_tiles(dev, b, h, w, smoothing):
+    eye4 = _pp_frame(b, h, w, 23, dev)
+    eye4[3] = (_rand((b, h, w), 24, dev) > 0.2).to(torch.uint8)
+    _pp_case(eye4, smoothing, dev)
+
+
 @pytest.mark.parametrize("N,T,H", [(3, 77, 2), (2, 577, 16), (1, 1, 1)])
 def test_attention_kernel_matches_plain(dev, N, T, H):
     g = torch.Generator(dev).manual_seed(5)
@@ -116,6 +198,68 @@ def test_attention_kernel_matches_plain(dev, N, T, H):
     diff = (got - want).abs()
     assert float(diff.max()) <= 8e-3
     assert float(diff.mean()) <= 1e-5
+
+
+def _attention_check(qkv, H, scale):
+    before = _cuda.LAUNCHES["attention"]
+    got = qkv_attention(qkv, H, scale).float()
+    assert _cuda.LAUNCHES["attention"] == before + 1
+    want = qkv_attention_plain(qkv, H, scale).float()
+    # the bounds of test_attention_kernel_matches_plain
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 8e-3
+    assert float(diff.mean()) <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 577])
+@pytest.mark.parametrize("N,H", [(72, 16), (3, 1), (5, 7)])
+def test_attention_kernel_token_counts(dev, T, N, H):
+    g = torch.Generator(dev).manual_seed(30 + T)
+    qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    _attention_check(qkv, H, 0.125)
+
+
+@pytest.mark.parametrize("T", [65, 577])
+def test_attention_kernel_large_logits(dev, T):
+    # logits ~30x larger (std ~30): a max taken over part of a row makes
+    # exp() overflow to inf and the output NaN. Near-ties put p near 1,
+    # where one step of bf16's grid is 2^-8: p at another f32 exponent
+    # (the products sum in another order) can round to the next step and
+    # move an output by up to 2^-8 x |v|; and the outputs, v-sized here
+    # (up to ~4), can round one step of their own grid (8e-3 of the value)
+    # the other way.
+    g = torch.Generator(dev).manual_seed(31)
+    qkv = torch.randn((4, T, 3 * 2 * 64), generator=g, device=dev)
+    qkv[..., :2 * 2 * 64] *= 30 ** 0.5
+    qkv = qkv.to(torch.bfloat16)
+    before = _cuda.LAUNCHES["attention"]
+    got = qkv_attention(qkv, 2, 0.125).float()
+    assert _cuda.LAUNCHES["attention"] == before + 1
+    want = qkv_attention_plain(qkv, 2, 0.125).float()
+    assert bool(torch.isfinite(got).all())
+    vmax = float(qkv[..., 2 * 2 * 64:].float().abs().max())
+    torch.testing.assert_close(got, want, rtol=8e-3, atol=2 ** -8 * vmax)
+    assert float((got - want).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("T", [64, 161, 577])
+def test_attention_kernel_dominant_key(dev, T):
+    # one key per sample takes (nearly) all the mass: the output is its v
+    N, H = 3, 2
+    g = torch.Generator(dev).manual_seed(32)
+    qkv = 0.1 * torch.randn((N, T, 3 * H * 64), generator=g, device=dev)
+    D = H * 64
+    qkv[..., :D] = 1.0
+    keys = [T - 1, 0, T // 2]                        # the last key, the first
+    for n, j in enumerate(keys):
+        qkv[n, j, D:2 * D] = 2.0
+    qkv = qkv.to(torch.bfloat16)
+    got = _attention_check(qkv, H, 0.125)
+    for n, j in enumerate(keys):
+        torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float()[
+            None].expand(T, D), atol=1e-2, rtol=0)
 
 
 @pytest.mark.parametrize("f,shape", [(2, (3, 13, 37)), (3, (2, 20, 301)),

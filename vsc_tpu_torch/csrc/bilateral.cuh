@@ -1,5 +1,5 @@
 // The bilateral of one pixel, shared by csrc/postprocess.cu (the fused
-// default route, bilateral inside the postprocess prep) and csrc/bilateral.cu
+// default route, bilateral inside the postprocess tile) and csrc/bilateral.cu
 // (the split route), so that both routes round alike bit for bit.
 //
 // cv2 weight laws as ops/postprocess_cuda.py states them: taps over the disc
@@ -34,9 +34,41 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i < n ? i : period - i;
 }
 
+// The bilateral sum of one pixel: start from its colors c[3], add each
+// tap's colors sh[3] with its space weight in the disc's order, then
+// finish to floor(clip(round(num / den), 0, 255)). Every caller reaches
+// its colors its own way (straight from the planes, or from a
+// shared-memory tile that already holds the reflected colors) and shares
+// this arithmetic.
+struct BilateralSum {
+  float c[3], num[3], den;
+
+  __device__ __forceinline__ explicit BilateralSum(const float center[3]) {
+    for (int k = 0; k < 3; ++k) c[k] = num[k] = center[k];
+    den = 1.0f;
+  }
+
+  __device__ __forceinline__ void tap(float space_w, float inv2sc,
+                                      const float sh[3]) {
+    const float cd = __fadd_rn(__fadd_rn(fabsf(__fsub_rn(sh[0], c[0])),
+                                         fabsf(__fsub_rn(sh[1], c[1]))),
+                               fabsf(__fsub_rn(sh[2], c[2])));
+    const float wgt =
+        __fmul_rn(space_w, expf(__fmul_rn(inv2sc, __fmul_rn(cd, cd))));
+    for (int k = 0; k < 3; ++k)
+      num[k] = __fadd_rn(num[k], __fmul_rn(wgt, sh[k]));
+    den = __fadd_rn(den, wgt);
+  }
+
+  __device__ __forceinline__ void finish(float out[3]) const {
+    for (int k = 0; k < 3; ++k)
+      out[k] =
+          floorf(fminf(fmaxf(rintf(__fdiv_rn(num[k], den)), 0.0f), 255.0f));
+  }
+};
+
 // Bilateral of image pixel (y, x), 0 <= y < H, 0 <= x < W, of the three u8
-// planes at base (plane stride `plane`, row stride W), written to out[3] as
-// floor(clip(round(num / den), 0, 255)).
+// planes at base (plane stride `plane`, row stride W).
 __device__ __forceinline__ void bilateral_px(const uint8_t* __restrict__ base,
                                              size_t plane, int H, int W,
                                              int y, int x,
@@ -45,25 +77,16 @@ __device__ __forceinline__ void bilateral_px(const uint8_t* __restrict__ base,
   float c[3];
   for (int k = 0; k < 3; ++k)
     c[k] = (float)base[k * plane + (size_t)y * W + x];
-  float num[3] = {c[0], c[1], c[2]};
-  float den = 1.0f;
+  BilateralSum acc(c);
   for (int i = 0; i < t.n; ++i) {
     const int sy = reflect101(y + t.dy[i], H);
     const int sx = reflect101(x + t.dx[i], W);
     float sh[3];
     for (int k = 0; k < 3; ++k)
       sh[k] = (float)base[k * plane + (size_t)sy * W + sx];
-    const float cd = __fadd_rn(__fadd_rn(fabsf(__fsub_rn(sh[0], c[0])),
-                                         fabsf(__fsub_rn(sh[1], c[1]))),
-                               fabsf(__fsub_rn(sh[2], c[2])));
-    const float wgt =
-        __fmul_rn(t.w[i], expf(__fmul_rn(t.inv2sc, __fmul_rn(cd, cd))));
-    for (int k = 0; k < 3; ++k)
-      num[k] = __fadd_rn(num[k], __fmul_rn(wgt, sh[k]));
-    den = __fadd_rn(den, wgt);
+    acc.tap(t.w[i], t.inv2sc, sh);
   }
-  for (int k = 0; k < 3; ++k)
-    out[k] = floorf(fminf(fmaxf(rintf(__fdiv_rn(num[k], den)), 0.0f), 255.0f));
+  acc.finish(out);
 }
 
 // Host side: the disc's taps in row-major order (center excluded).

@@ -28,10 +28,11 @@ import time
 from pathlib import Path
 
 __all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr",
-           "require_cuda", "BUILD_SECONDS"]
+           "require_cuda", "BUILD_SECONDS", "PTXAS_LOG"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vsc_tpu_torch"
+PTXAS_LOG = _BUILD_DIR / "ptxas.log"    # nvcc -Xptxas -v of the last build
 NVCC_TIMEOUT = 600.0
 
 LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
@@ -56,10 +57,8 @@ _SIGNATURES = {
     # depth, image [B, 3, H, W] u8, eye_l, eye_r, B, H, W, max_disparity,
     # stream
     "vsc_warp_planar_u8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # eye4, smooth_q, out, chans, v0, v1, k0, k1, keep, tables(host),
-    # B, H, W, Hq, Wq, M, rb, stream
-    "vsc_postprocess": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+    # eye4, smooth_q, out, tables(host), B, H, W, Hq, Wq, rb, stream
+    "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qkv, out, N, T, heads, scale, stream
     "vsc_qkv_attention": [_P, _P, _I, _I, _I, _F, _P],
     # x, out, d0(host), k(host), wa(host), wb(host), N, H, W, f,
@@ -140,7 +139,7 @@ def _build() -> Path:
                       "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
                       "-v", "-c", "-o", str(o), str(p)]
                      for p, o in zip(sources, objs)])
-    (_BUILD_DIR / "ptxas.log").write_text("".join(logs))
+    PTXAS_LOG.write_text("".join(logs))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
         _run_all([[nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]])

@@ -13,7 +13,9 @@ row sum):
                        per-head interleaved projection (a TPU lane-tiling
                        choice); the port keeps PyTorch's plain [q | k | v]
                        layout and reads it through strides. Kernel source:
-                       ``csrc/attention.cu`` (bf16, head dim 64).
+                       ``csrc/attention.cu`` (bf16, head dim 64, at most
+                       ``QKV_MAX_T`` tokens: each head's K and V and every
+                       query row's logits stay on chip).
   short_seq_attention  replaces ``short_seq_attention``: separate q, k, v
                        [B, T, H, Dh], here strided views of the fused
                        projection (no copies). Kernel source:
@@ -35,9 +37,11 @@ import torch
 from vsc_tpu_torch.ops import _cuda
 
 __all__ = ["qkv_attention", "qkv_attention_plain", "short_seq_attention",
-           "short_seq_attention_plain", "attention_route", "SPLIT_HEAD_DIMS"]
+           "short_seq_attention_plain", "attention_route", "SPLIT_HEAD_DIMS",
+           "QKV_MAX_T"]
 
 HEAD_DIM = 64
+QKV_MAX_T = 640     # the qkv kernel's key range (csrc/attention.cu kTmax)
 SPLIT_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 _SPLIT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -121,7 +125,7 @@ def qkv_attention_plain(qkv, num_heads: int, scale: float):
 
 def qkv_attention(qkv, num_heads: int, scale: float):
     """CPU tensors: the plain version; CUDA tensors: the kernel (bf16,
-    head dim 64)."""
+    head dim 64, T <= ``QKV_MAX_T``)."""
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads, scale)
     _cuda.require_cuda("qkv_attention", qkv)
@@ -131,6 +135,9 @@ def qkv_attention(qkv, num_heads: int, scale: float):
                          f"[N, T, 3 * heads * {HEAD_DIM}], got "
                          f"{tuple(qkv.shape)} {qkv.dtype} with "
                          f"{num_heads} heads")
+    if T > QKV_MAX_T:
+        raise ValueError(f"qkv_attention: the kernel takes at most "
+                         f"{QKV_MAX_T} tokens, got {T}")
     if qkv.data_ptr() % 16:
         # the kernel reads q, k and v rows as 16-byte vectors
         raise ValueError("qkv_attention: qkv must start on a 16-byte "

@@ -27,8 +27,14 @@ reflect-101 padded and the valid plane zero outside the image:
   5. one radius-3 polish over the hole pixels, divided by the full weight
      sum; round(clip(.)) to u8.
 
-The Pallas kernel's early sweep exit and per-column skip change nothing
-inside the image, so neither appears here.
+The kernel works on output tiles of TILE_H x TILE_W with a halo of 9
+(every dependency of a tile's output), and a tile whose neighbourhood holds
+no hole (the Pallas kernel's ``hole_active`` test, ``hole_tiles`` below)
+takes its bilateral and skips stages 2-5, as the Pallas kernel skips its
+fill chain per block and per subtile: every pixel of such a tile is kept,
+so its output is its bilateral either way, and the output is the same.
+The Pallas kernel's early sweep exit changes nothing inside the image; the
+plain version runs neither skip.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from vsc_tpu_torch.ops import _cuda
 from vsc_tpu_torch.ops.inpaint import disc_offsets
 
 __all__ = ["postprocess_eye", "postprocess_eye_plain", "bilateral_geometry",
-           "bilateral_plain", "bilateral_tables", "margin_chans"]
+           "bilateral_plain", "bilateral_tables", "margin_chans",
+           "hole_tiles", "TILE_H", "TILE_W"]
 
 SIGMA_COLOR = 30.0
 FILL_RADIUS = 2
@@ -52,6 +59,7 @@ POLISH_RADIUS = 3
 _FILL_OFFS = disc_offsets(FILL_RADIUS)
 _POLISH_OFFS = disc_offsets(POLISH_RADIUS)
 MAX_BILATERAL_RADIUS = 7
+TILE_H, TILE_W = 48, 32     # the kernel's output tile (csrc/postprocess.cu)
 
 
 def bilateral_geometry(smoothing: float):
@@ -186,8 +194,22 @@ def postprocess_eye_plain(eye4, smooth_q, smoothing: float):
     return torch.round(torch.clamp(out, 0.0, 255.0)).to(torch.uint8)
 
 
+def hole_tiles(valid):
+    """valid [B, H, W] (nonzero = valid) -> bool [B, ceil(H / TILE_H),
+    ceil(W / TILE_W)]: the tiles whose output depends on the fill, i.e. an
+    in-image pixel within 1 of the tile is a hole; the kernel runs stages
+    2-5 on these and only the bilateral on the rest."""
+    hole = (valid == 0).to(torch.float32)[:, None]
+    near = torch.nn.functional.max_pool2d(hole, 3, stride=1, padding=1)[:, 0]
+    B, H, W = near.shape
+    th, tw = -(-H // TILE_H), -(-W // TILE_W)
+    near = torch.nn.functional.pad(near, (0, tw * TILE_W - W,
+                                          0, th * TILE_H - H))
+    return near.reshape(B, th, TILE_H, tw, TILE_W).amax(dim=(2, 4)) > 0
+
+
 def postprocess_eye(eye4, smooth_q, smoothing: float):
-    """CPU tensors: the plain version; CUDA tensors: the kernel chain."""
+    """CPU tensors: the plain version; CUDA tensors: the kernel."""
     if eye4.device.type == "cpu" and smooth_q.device.type == "cpu":
         return postprocess_eye_plain(eye4, smooth_q, smoothing)
     _cuda.require_cuda("postprocess_eye", eye4, smooth_q)
@@ -210,22 +232,11 @@ def postprocess_eye(eye4, smooth_q, smoothing: float):
         [w for _, _, w in _FILL_OFFS] + [w for _, _, w in _POLISH_OFFS]
         + [sum(w for _, _, w in _POLISH_OFFS), inv2sc], dtype=np.float32),
         space_w])
-    M = _margin(smoothing)
-    Hd, Wd = H + 2 * M, W + 2 * M
-    dev = eye4.device
-    out = torch.empty((3, B, H, W), dtype=torch.uint8, device=dev)
-    chans = torch.empty((3, B, Hd, Wd), dtype=torch.uint8, device=dev)
-    keep = torch.empty((B, Hd, Wd), dtype=torch.uint8, device=dev)
-    v = [torch.empty((3, B, Hd, Wd), dtype=torch.float32, device=dev)
-         for _ in range(2)]
-    k = [torch.empty((B, Hd, Wd), dtype=torch.uint8, device=dev)
-         for _ in range(2)]
+    out = torch.empty((3, B, H, W), dtype=torch.uint8, device=eye4.device)
     code = _cuda.library().vsc_postprocess(
         eye4.data_ptr(), smooth_q.data_ptr(), out.data_ptr(),
-        chans.data_ptr(), v[0].data_ptr(), v[1].data_ptr(),
-        k[0].data_ptr(), k[1].data_ptr(), keep.data_ptr(),
-        tables.ctypes.data_as(ctypes.c_void_p),
-        B, H, W, Hq, Wq, M, rb, _cuda.stream_ptr(dev))
+        tables.ctypes.data_as(ctypes.c_void_p), B, H, W, Hq, Wq, rb,
+        _cuda.stream_ptr(eye4.device))
     _cuda.check(code, "vsc_postprocess")
     _cuda.LAUNCHES["postprocess"] += 1
     return out
