@@ -176,8 +176,8 @@ def time_ms(fn, reps: int = 5) -> float:
 CONV_GROUP = r"fprop|dgrad|wgrad|cudnn|conv|nchwToNhwc"
 GROUPS = [
     ("attention kernel", r"qkv_attention_kernel"),
-    ("split attention kernel", r"split_attention_kernel"),
-    ("deconv kernel", r"deconv2x2_kernel"),
+    ("split attention kernel", r"split_attention_(bf16|f32)_kernel"),
+    ("deconv kernel", r"deconv2x2_(bf16|f32)_kernel"),
     ("SBS kernels (blur, warp, postprocess, bilateral)",
      r"::(blur|warp|postprocess_tile|bilateral|quarter)_kernel[<(]"),
     ("super-sampling kernels (upsample, pool, pyramid, finish)",
@@ -230,9 +230,22 @@ def profile_device(fn):
                 events=len(dev), groups=groups, per_kernel=per_kernel)
 
 
-def log_profile(what: str, fn, group: str | None = None) -> None:
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device time of fn() over reps calls: the sum of its device
+    events (kernels, copies, memsets) under torch.profiler, after one
+    warm-up call. Unlike time_ms it leaves out the host's launch cost,
+    which sets time_ms for kernels shorter than ~0.1 ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    prof = profile_device(lambda: [fn() for _ in range(reps)])
+    return sum(prof["per_kernel"].values()) / reps
+
+
+def log_profile(what: str, fn, group: str | None = None) -> dict:
     """Device time of one call of fn() by kernel group, the top kernels,
-    and with ``group`` (a GROUPS pattern) the top kernels of that group."""
+    and with ``group`` (a GROUPS pattern) the top kernels of that group.
+    Returns the device time by group (ms)."""
     import re
     prof = profile_device(fn)
     per_kernel = sorted(prof["per_kernel"].items(), key=lambda kv: -kv[1])
@@ -253,6 +266,7 @@ def log_profile(what: str, fn, group: str | None = None) -> None:
             f"{t:.2f} ms {n[:70]}"
             for n, t in [kv for kv in per_kernel
                          if re.search(group, kv[0])][:6]))
+    return prof["groups"]
 
 
 def smooth_depth(B, H, W, dev, seed):
@@ -684,36 +698,57 @@ DECONV_F32_TOL = (1e-4, 1e-5)       # atol, rtol: f32 sums in another order
 
 
 def phase_depth_kernels(B: int):
-    """The deconv kernel at every DepthPro site shape (bf16, batch B) and
-    once in f32, and the split-q/k/v attention at [36B, 577, 16, 64] in f32
-    (the float32 DepthPro's shape) and bf16, and at head dims 16 and 128,
-    each against its plain version, with the library call's time."""
+    """The deconv kernel at every DepthPro site shape (bf16, batch B, the
+    channels-last input the model hands it; its output in the memory
+    format conv_transpose2d returns) and once in f32, and the split-q/k/v
+    attention at [36B, 577, 16, 64] in f32 (the float32 DepthPro's shape)
+    and bf16, and at head dims 16 and 128, each against its plain version,
+    with the library call's time."""
     import torch
     import torch.nn.functional as F
     from vsc_tpu_torch.ops.attention_cuda import (short_seq_attention,
                                                   short_seq_attention_plain)
-    from vsc_tpu_torch.ops.deconv_cuda import deconv2x2, deconv2x2_plain
+    from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_plain,
+                                               pack_weight)
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(21)
     res = {}
 
     def deconv_site(S, C, O, has_bias, dtype):
-        x = torch.randn((B, C, S, S), generator=g, device=dev).to(dtype)
+        # channels-last, as the port's DepthPro hands every site its input;
+        # upsample_lowres reads the image encoder's tokens less the cls
+        # token (its images one token apart)
+        if (S, C, O, has_bias) == (24, 1024, 1024, True):
+            x = torch.randn((B, 1 + S * S, C), generator=g, device=dev).to(
+                dtype)[:, 1:].reshape(B, S, S, C).permute(0, 3, 1, 2)
+        else:
+            x = torch.randn((B, S, S, C), generator=g, device=dev).to(
+                dtype).permute(0, 3, 1, 2)
         w = (torch.randn((C, O, 2, 2), generator=g, device=dev)
              / (4 * C) ** 0.5).to(dtype)
         b = (0.1 * torch.randn((O,), generator=g, device=dev)).to(
             dtype) if has_bias else None
-        got, want = deconv2x2(x, w, b).float(), deconv2x2_plain(x, w, b).float()
+        packed = pack_weight(w)      # ConvT2x2 keeps it between calls
+        out = deconv2x2(x, w, b, packed=packed)
+        lib = F.conv_transpose2d(x, w, b, stride=2)
+        fmt = [t.is_contiguous(memory_format=torch.channels_last)
+               and not t.is_contiguous() for t in (out, lib)]
+        check(all(fmt), f"deconv {S} {C}->{O} {dtype}: channels-last of "
+                        f"the kernel's and conv_transpose2d's output: {fmt}")
+        got, want = out.float(), deconv2x2_plain(x, w, b).float()
+        del out, lib
         atol, rtol = DECONV_BF16_TOL if dtype == torch.bfloat16 else \
             DECONV_F32_TOL
         excess = float(((got - want).abs() - atol - rtol * want.abs()).max())
         ops = 2.0 * B * S * S * C * 4 * O
+        # device time: at most sites one call is shorter than its launch
+        kern = lambda: deconv2x2(x, w, b, packed=packed)      # noqa: E731
+        cudnn = lambda: F.conv_transpose2d(x, w, b, stride=2)  # noqa: E731
         r = dict(max_abs_err=float((got - want).abs().max()),
                  within=excess <= 0,
-                 ms=time_ms(lambda: deconv2x2(x, w, b)),
+                 ms=device_ms(kern), wall_ms=time_ms(kern),
                  plain_ms=time_ms(lambda: deconv2x2_plain(x, w, b), reps=2),
-                 library_ms=time_ms(lambda: F.conv_transpose2d(
-                     x, w, b, stride=2)),
+                 library_ms=device_ms(cudnn), library_wall_ms=time_ms(cudnn),
                  **least_time(nbytes(x, w, b) + x.element_size() * B * O * 4
                               * S * S,
                               **({"bf16_tensor": ops}
@@ -730,9 +765,11 @@ def phase_depth_kernels(B: int):
         log(f"phase 2: deconv {S}^2 {C}->{O}{' +bias' if has_bias else ''} "
             f"x{count} bf16 [{B} frames]: max_abs_err "
             f"{r['max_abs_err']:.3g} [atol {DECONV_BF16_TOL[0]} + rtol "
-            f"{DECONV_BF16_TOL[1]}], kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, conv_transpose2d {r['library_ms']:.3f} "
-            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+            f"{DECONV_BF16_TOL[1]}], kernel {r['ms']:.3f} ms (wall "
+            f"{r['wall_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
+            f"conv_transpose2d {r['library_ms']:.3f} ms (wall "
+            f"{r['library_wall_ms']:.3f}), bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
     r32 = deconv_site(96, 512, 512, False, torch.float32)
     log(f"phase 2: deconv 96^2 512->512 f32: max_abs_err "
         f"{r32['max_abs_err']:.3g} [atol {DECONV_F32_TOL[0]} + rtol "
@@ -740,16 +777,18 @@ def phase_depth_kernels(B: int):
         f"{r32['plain_ms']:.3f} ms, conv_transpose2d {r32['library_ms']:.3f} "
         f"ms, bound {r32['bound_ms']:.3f} ms ({r32['bound_by']})")
     # the row: every site of one batch, weighted by its count
-    tot = {k: sum(c * r[k] for *_, c, r in sites)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
+            "bound_ms")
+    tot = {k: sum(c * r[k] for *_, c, r in sites) for k in keys}
     res["deconv"] = dict(
         tot, max_abs_err=max([r["max_abs_err"] for *_, r in sites]
                              + [r32["max_abs_err"]]),
         bound_by=max(sites, key=lambda t: t[4] * t[5]["bound_ms"])[5][
             "bound_by"])
     log(f"phase 2: deconv, the 14 sites of one {B}-frame batch: kernel "
-        f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-        f"conv_transpose2d {tot['library_ms']:.3f} ms, bound "
+        f"{tot['ms']:.3f} ms device ({tot['wall_ms']:.3f} wall), plain "
+        f"{tot['plain_ms']:.3f} ms, conv_transpose2d {tot['library_ms']:.3f} "
+        f"ms device ({tot['library_wall_ms']:.3f} wall), bound "
         f"{tot['bound_ms']:.3f} ms")
 
     N = 36 * B
@@ -915,10 +954,11 @@ def depth_diff(a, b) -> tuple[float, int]:
 
 
 def phase_routes(B: int, depth_fn, frames, params, t_depth: float,
-                 t_sbs: float, card: str) -> dict:
+                 t_sbs: float, card: str, default_groups: dict) -> dict:
     """The JAX package's opt-in routes to its last three kernels, each
     driven through render_sbs for ROUTE_BATCHES batches with the launch
-    counters reset around the run. Returns each route's counts."""
+    counters reset around the run (``default_groups``: the default batch's
+    device time by group). Returns each route's counts."""
     import torch
     from vsc_tpu_torch.models import depthpro
     from vsc_tpu_torch.ops.stereo import generate_sbs
@@ -975,10 +1015,12 @@ def phase_routes(B: int, depth_fn, frames, params, t_depth: float,
         _, bs, l_dec = drive(frames, recording, params)
         td = time_ms(lambda: depth_fn(frames[0]), reps=3)
         real = depthpro.deconv2x2
+        cl = torch.channels_last
         broken = {
-            "drops its last 8 input channels": lambda x, w, b: real(
-                x[:, :-8].contiguous(), w[:-8].contiguous(), b),
-            "swaps the row and column phases": lambda x, w, b: real(
+            "drops its last 8 input channels": lambda x, w, b, packed: real(
+                x[:, :-8].contiguous(memory_format=cl), w[:-8].contiguous(),
+                b),
+            "swaps the row and column phases": lambda x, w, b, packed: real(
                 x, w.transpose(2, 3).contiguous(), b)}
         mutants = {}
         try:
@@ -1004,9 +1046,15 @@ def phase_routes(B: int, depth_fn, frames, params, t_depth: float,
           f"the depth bound accepts a broken deconv: {mutants}")
     timing("VSC_TPU_PALLAS_DECONV=1", bs, td, t_sbs)
     with env_set("VSC_TPU_PALLAS_DECONV", "1"):
-        log_profile("one VSC_TPU_PALLAS_DECONV=1 batch",
-                    lambda: render_sbs(frames[-1], depth_fn, params),
-                    group=CONV_GROUP)
+        groups = log_profile("one VSC_TPU_PALLAS_DECONV=1 batch",
+                             lambda: render_sbs(frames[-1], depth_fn, params),
+                             group=CONV_GROUP)
+    conv = "convolutions (cuDNN)"
+    log(f"phase 3: per batch, the deconv route's {conv} group "
+        f"{groups[conv]:.2f} ms + deconv kernel {groups['deconv kernel']:.2f} "
+        f"ms against the default route's {conv} group "
+        f"{default_groups[conv]:.2f} ms (cuDNN's ConvT included); depth "
+        f"{td / B:.1f} against {t_depth / B:.1f} ms/frame")
 
     # 3. float32 DepthPro: the split-q/k/v attention at head dim 64
     with env_set("VSC_TPU_DEPTH_DTYPE", "float32"):
@@ -1093,14 +1141,14 @@ def phase_slice(B: int, batches: int, card: str):
             f"{per_frame[-1]:.1f} ms/frame min / median / max) on {card}")
     log(f"phase 3: peak device memory at the defaults {peak:.2f} GiB")
     pair_holes(frames[0], depth, params)
-    log_profile("one default batch",
-                lambda: render_sbs(frames[-1], depth_fn, params),
-                group=CONV_GROUP)
+    default_groups = log_profile(
+        "one default batch", lambda: render_sbs(frames[-1], depth_fn, params),
+        group=CONV_GROUP)
 
     small_sbs_check(ss1, dev)
     small_sbs_check(params, dev)
     launches.update(phase_routes(B, depth_fn, frames, params, t_depth, t_sbs,
-                                 card))
+                                 card, default_groups))
     return launches
 
 

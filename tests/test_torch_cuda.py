@@ -382,27 +382,151 @@ def test_split_postprocess_equals_fused_on_card(dev, smoothing):
                        postprocess_eye(eye4, smooth_q, smoothing))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c,h,w,o,bias", [
-    (2, 128, 8, 16, 128, False), (1, 256, 16, 8, 128, True),   # C != O
-    (1, 128, 24, 24, 256, False), (3, 32, 5, 4, 64, True),     # ragged P
-])
-def test_deconv_kernel_matches_plain(dev, dtype, n, c, h, w, o, bias):
+def _deconv_case(dev, dtype, n, c, h, w, o, bias, seed, tol,
+                 tokens=False):
+    """The kernel on a channels-last x against the plain version: the
+    launch counted, the values within tol (atol, rtol), the output in the
+    memory format conv_transpose2d returns for that x. ``tokens``: x is a
+    token sequence less its first token, as a map (images one token
+    apart, as DepthPro's upsample_lowres reads them)."""
     from vsc_tpu_torch.ops.deconv_cuda import deconv2x2, deconv2x2_plain
-    g = torch.Generator(dev).manual_seed(17)
-    x = torch.randn((n, c, h, w), generator=g, device=dev).to(dtype)
-    wt = (0.1 * torch.randn((c, o, 2, 2), generator=g, device=dev)).to(dtype)
+    g = torch.Generator(dev).manual_seed(seed)
+    if tokens:
+        x = torch.randn((n, 1 + h * w, c), generator=g, device=dev).to(
+            dtype)[:, 1:].reshape(n, h, w, c).permute(0, 3, 1, 2)
+    else:
+        x = torch.randn((n, h, w, c), generator=g, device=dev).to(
+            dtype).permute(0, 3, 1, 2)                  # NHWC memory
+    wt = (torch.randn((c, o, 2, 2), generator=g, device=dev)
+          / (4 * c) ** 0.5).to(dtype)
     b = (0.1 * torch.randn((o,), generator=g, device=dev)).to(
         dtype) if bias else None
     before = _cuda.LAUNCHES["deconv"]
     got = deconv2x2(x, wt, b)
     assert _cuda.LAUNCHES["deconv"] == before + 1
     want = deconv2x2_plain(x, wt, b)
+    ref = torch.nn.functional.conv_transpose2d(x, wt, b, stride=2)
+    for t in (got, want, ref):
+        assert t.is_contiguous(memory_format=torch.channels_last)
+    atol, rtol = tol
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    return x, wt, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,o,bias", [
+    (2, 128, 8, 16, 128, False), (1, 256, 16, 8, 128, True),   # C != O
+    (1, 128, 24, 24, 256, False), (3, 32, 5, 4, 64, True),     # ragged P
+    (1, 72, 3, 7, 192, True),                                  # ragged K
+])
+def test_deconv_kernel_matches_plain(dev, dtype, n, c, h, w, o, bias):
     # f32: sums of <= 256 products in another order; bf16: the same sum
     # rounded once to bf16 (8 bits): one step of the output's bf16 grid
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(
-        rtol=8e-3, atol=1e-3)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-3, 8e-3)
+    _deconv_case(dev, dtype, n, c, h, w, o, bias, 17, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,g,bias", [(2, 24, True), (3, 8, False)])
+def test_deconv_kernel_reads_a_token_slice(dev, dtype, n, g, bias):
+    # upsample_lowres at batch 2: the image tokens less the cls token
+    from chip_smoke import DECONV_BF16_TOL, DECONV_F32_TOL
+    tol = DECONV_F32_TOL if dtype == torch.float32 else DECONV_BF16_TOL
+    _deconv_case(dev, dtype, n, 1024 if g == 24 else 128, g, g, 128, bias,
+                 60 + g, tol, tokens=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", range(9))
+def test_deconv_kernel_depthpro_sites(dev, dtype, site):
+    """Every DepthPro site shape of chip_smoke.DECONV_SITES at batch 1,
+    with chip_smoke's bounds; an NCHW input is refused."""
+    from chip_smoke import DECONV_BF16_TOL, DECONV_F32_TOL, DECONV_SITES
+    from vsc_tpu_torch.ops.deconv_cuda import deconv2x2
+    S, C, O, bias, _ = DECONV_SITES[site]
+    tol = DECONV_F32_TOL if dtype == torch.float32 else DECONV_BF16_TOL
+    x, wt, b = _deconv_case(dev, dtype, 1, C, S, S, O, bias, 40 + site, tol)
+    with pytest.raises(ValueError, match="channels-last"):
+        deconv2x2(x.contiguous(), wt, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("T", [1, 37, 64, 65, 577, 640])
+def test_split_attention_kernel_token_counts(dev, dtype, Dh, T):
+    from vsc_tpu_torch.ops.attention_cuda import SPLIT_HEAD_DIMS, SPLIT_MAX_T
+    assert Dh in SPLIT_HEAD_DIMS and T <= SPLIT_MAX_T
+    B, H = (2, 3) if T < 577 else (1, 2)
+    g = torch.Generator(dev).manual_seed(50 + T + Dh)
+    qkv = torch.randn((B, T, 3 * H * Dh), generator=g, device=dev).to(dtype)
+    _split_check(qkv, H, Dh, Dh ** -0.5)
+
+
+def _split_check(qkv, H, Dh, scale, large=False):
+    """The split kernel on q, k, v views of qkv against the plain version,
+    one launch counted; the bounds of test_split_attention_kernel_matches_
+    plain, or with ``large`` those of test_attention_kernel_large_logits."""
+    from vsc_tpu_torch.ops.attention_cuda import (short_seq_attention,
+                                                  short_seq_attention_plain)
+    B, T, _ = qkv.shape
+    q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+    before = _cuda.LAUNCHES["attention_split"]
+    got = short_seq_attention(q, k, v, scale).float()
+    assert _cuda.LAUNCHES["attention_split"] == before + 1
+    want = short_seq_attention_plain(q, k, v, scale).float()
+    assert bool(torch.isfinite(got).all())
+    diff = (got - want).abs()
+    if qkv.dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5 * (30 if large else 1)
+    elif large:
+        vmax = float(v.float().abs().max())
+        torch.testing.assert_close(got, want, rtol=8e-3, atol=2 ** -8 * vmax)
+        assert float(diff.mean()) <= 1e-3
+    else:
+        assert float(diff.max()) <= 8e-3
+        assert float(diff.mean()) <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [65, 577])
+def test_split_attention_kernel_large_logits(dev, dtype, T):
+    # test_attention_kernel_large_logits on the split kernel: logits ~30x
+    # larger, so a max over part of a row overflows exp() (f32: the
+    # outputs' error grows with the logits' size, 30x the usual bound)
+    g = torch.Generator(dev).manual_seed(33)
+    qkv = torch.randn((4, T, 3 * 2 * 64), generator=g, device=dev)
+    qkv[..., :2 * 2 * 64] *= 30 ** 0.5
+    _split_check(qkv.to(dtype), 2, 64, 0.125, large=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [64, 161, 577])
+def test_split_attention_kernel_dominant_key(dev, dtype, T):
+    # one key per sample takes (nearly) all the mass: the output is its v
+    N, H, Dh = 3, 2, 64
+    g = torch.Generator(dev).manual_seed(34)
+    qkv = 0.1 * torch.randn((N, T, 3 * H * Dh), generator=g, device=dev)
+    D = H * Dh
+    qkv[..., :D] = 1.0
+    keys = [T - 1, 0, T // 2]                        # the last key, the first
+    for n, j in enumerate(keys):
+        qkv[n, j, D:2 * D] = 2.0
+    qkv = qkv.to(dtype)
+    got = _split_check(qkv, H, Dh, 0.125)
+    for n, j in enumerate(keys):
+        torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float().view(
+            H, Dh)[None].expand(T, H, Dh), atol=1e-2, rtol=0)
+
+
+def test_split_attention_kernel_refuses_beyond_its_cap(dev):
+    from vsc_tpu_torch.ops.attention_cuda import (SPLIT_MAX_T,
+                                                  short_seq_attention)
+    qkv = torch.zeros((1, SPLIT_MAX_T + 1, 3 * 64), device=dev)
+    q, k, v = qkv.view(1, SPLIT_MAX_T + 1, 3, 1, 64).unbind(2)
+    with pytest.raises(ValueError, match="at most"):
+        short_seq_attention(q, k, v, 0.125)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

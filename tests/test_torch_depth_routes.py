@@ -18,7 +18,7 @@ from vsc_tpu_torch.ops.attention_cuda import (attention_route,
                                               short_seq_attention,
                                               short_seq_attention_plain)
 from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_plain,
-                                           deconv2x2_supported)
+                                           deconv2x2_supported, pack_weight)
 
 
 # tests/test_deconv_pallas.py's shapes (NHWC there, NCHW here)
@@ -65,6 +65,162 @@ def test_deconv_plain_casts_once_and_guard_matches_jax():
                              ((2, 1024, 24, 24), 1024)]:
         assert deconv2x2_supported(torch.zeros(n, c, h, wd), o) == bool(
             jguard(jnp.zeros((n, h, wd, c)), o))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,o,bias", [(2, 128, 8, 16, 128, True),
+                                            (1, 256, 16, 8, 128, False)])
+def test_deconv_channels_last_gives_conv_transposes_format(dtype, n, c, h, w,
+                                                           o, bias):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(
+        np.float32)).to(dtype).permute(0, 3, 1, 2)      # NHWC memory
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, o, 2, 2)).astype(
+        np.float32)).to(dtype)
+    b = torch.from_numpy(rng.normal(0, 0.1, (o,)).astype(np.float32)).to(
+        dtype) if bias else None
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    got = deconv2x2(x, wt, b)
+    ref = torch.nn.functional.conv_transpose2d(x, wt, b, stride=2)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert ref.is_contiguous(memory_format=torch.channels_last)
+    assert not got.is_contiguous() and not ref.is_contiguous()
+    assert torch.equal(got, deconv2x2_plain(x.contiguous(), wt, b))
+    nchw = deconv2x2(x.contiguous(), wt, b)
+    assert nchw.is_contiguous() and torch.equal(nchw, got)
+
+
+def test_deconv_plain_on_a_token_slice_gives_conv_transposes_format():
+    """The image encoder's tokens less their cls token, as a map: images
+    in channels-last memory spaced one token apart. The plain version
+    returns conv_transpose2d's values and memory format (channels-last)."""
+    rng = np.random.default_rng(7)
+    n, g, c, o = 2, 4, 128, 64
+    tokens = torch.from_numpy(rng.normal(0, 1, (n, 1 + g * g, c)).astype(
+        np.float32))
+    x = tokens[:, 1:].reshape(n, g, g, c).permute(0, 3, 1, 2)
+    assert not x.is_contiguous(memory_format=torch.channels_last)
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, o, 2, 2)).astype(
+        np.float32))
+    got = deconv2x2(x, wt)
+    ref = torch.nn.functional.conv_transpose2d(x, wt, stride=2)
+    assert ref.is_contiguous(memory_format=torch.channels_last)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,o", [(128, 128), (256, 64), (32, 128)])
+def test_pack_weight_matches_plain(c, o):
+    """The kernel's product on the packed weight: Y[p, q] = sum_c X[p, c]
+    Wt[q, c] over NHWC pixels, row q = a*2O + b*O + o a contiguous span of
+    output row 2i+a, equals the plain version."""
+    rng = np.random.default_rng(5)
+    n, h, w = 2, 3, 5
+    x = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32))
+    wt = torch.from_numpy(rng.normal(0, 0.1, (c, o, 2, 2)).astype(
+        np.float32))
+    packed = pack_weight(wt)
+    assert packed.shape == (4 * o, c) and packed.is_contiguous()
+    y = x.permute(0, 2, 3, 1).reshape(-1, c) @ packed.T    # [NHW, 4O]
+    # [n, i, j, a, b, o] -> [n, o, (i, a), (j, b)]
+    y = y.reshape(n, h, w, 2, 2, o).permute(0, 5, 1, 3, 2, 4)
+    torch.testing.assert_close(y.reshape(n, o, 2 * h, 2 * w),
+                               deconv2x2_plain(x, wt), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_deconv_bf16_biased_site_against_jax_kernel(seed):
+    """bf16 at a biased site (C = O = 128, as the head's deconv). JAX
+    rounds twice: the f32 product z to bf16, then z + bias to bf16
+    (deconv_pallas.py:66-68); the port rounds z + bias once, as cuDNN's
+    conv_transpose2d does. So ~30 % of outputs differ, each by at most one
+    step of bf16's grid at the larger of |z| and the outputs (the first
+    rounding moves z by half a step of z's own grid, and z + bias can be
+    far smaller than z)."""
+    from vsc_tpu.ops.deconv_pallas import deconv2x2_pallas
+    rng = np.random.default_rng(seed)
+    n, h, w, c, o = 1, 8, 16, 128, 128
+    x = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(
+        np.float32)).bfloat16()
+    k = torch.from_numpy(rng.normal(0, (4 * c) ** -0.5, (2, 2, c, o)).astype(
+        np.float32)).bfloat16()
+    b = torch.from_numpy(rng.normal(0, 0.1, (o,)).astype(
+        np.float32)).bfloat16()
+    want = np.asarray(deconv2x2_pallas(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (x, k, b))).astype(jnp.float32))       # [N, 2H, 2W, O]
+    xt, wt = x.permute(0, 3, 1, 2), k.permute(2, 3, 0, 1).contiguous()
+    got = deconv2x2(xt, wt, b).float().permute(0, 2, 3, 1).numpy()
+    z = deconv2x2_plain(xt.float(), wt.float()).permute(0, 2, 3, 1).numpy()
+    mag = np.maximum(np.abs(z), np.maximum(np.abs(got), np.abs(want)))
+    step = 2.0 ** (np.floor(np.log2(mag)) - 7)        # bf16: 8 bits
+    diff = np.abs(got - want)
+    assert np.all(diff <= step)
+    assert 0.0 < float(np.mean(diff > 0)) < 0.5
+
+
+def test_convt2x2_packs_its_weight_once_per_version():
+    from vsc_tpu_torch.models.depthpro import ConvT2x2
+    m = ConvT2x2(128, 64)
+    first = m.packed_weight()
+    assert m.packed_weight() is first                  # cached
+    assert torch.equal(first, pack_weight(m.weight.detach()))
+    with torch.no_grad():
+        m.weight.mul_(2.0)                             # a new version
+    again = m.packed_weight()
+    assert again is not first and torch.equal(again, 2.0 * first)
+    m.load_state_dict({"weight": torch.ones(128, 64, 2, 2)})
+    assert torch.equal(m.packed_weight(), torch.ones(256, 128))
+    m.bfloat16()                                       # a new dtype
+    assert m.packed_weight().dtype == torch.bfloat16
+
+
+def test_depthpro_deconv_sites_read_channels_last(monkeypatch):
+    """Every ConvT2x2 of the port's DepthPro gets a channels-last input
+    (the NHWC images and tokens permuted, cuDNN's convolutions keeping the
+    format; at batch 2 the image encoder's tokens less their cls token are
+    images spaced one token apart), so the kernel route reads it with no
+    copy; on either route each site returns what conv_transpose2d returns,
+    format included."""
+    from vsc_tpu_torch.models import DepthPro, DepthProConfig, ViTConfig
+    from vsc_tpu_torch.models.depthpro import DECONV_ENV, ConvT2x2
+    torch.manual_seed(0)
+    cfg = DepthProConfig(img_size=128, tile_size=32,
+                         encoder=ViTConfig(img_size=32, patch_size=4,
+                                           embed_dim=128, depth=2,
+                                           num_heads=2),
+                         hook_block_ids=(0, 1), decoder_features=128,
+                         dims_encoder=(128, 128, 128, 128))
+    model = DepthPro(cfg).eval()
+    seen = []
+    cl = torch.channels_last
+
+    def hook(mod, args, out):
+        x, = args
+        ref = torch.nn.functional.conv_transpose2d(x, mod.weight, mod.bias,
+                                                   stride=2)
+        seen.append((x[0].permute(1, 2, 0).is_contiguous()
+                     and not x.is_contiguous(),
+                     out.is_contiguous(memory_format=cl) and
+                     ref.is_contiguous(memory_format=cl),
+                     deconv2x2_supported(x, mod.weight.shape[1]),
+                     float((out - ref).abs().max()),
+                     x.is_contiguous(memory_format=cl)))
+    sites = [m for m in model.modules() if isinstance(m, ConvT2x2)]
+    for m in sites:
+        m.register_forward_hook(hook)
+    img = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, (2, 128, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        for env in ("0", "1"):
+            monkeypatch.setenv(DECONV_ENV, env)
+            model(img)
+    assert len(sites) == 14 and len(seen) == 2 * len(sites)
+    assert all(cl_in and cl_out for cl_in, cl_out, *_ in seen)
+    assert any(guard for _, _, guard, *_ in seen)    # the kernel route ran
+    assert max(err for *_, err, _ in seen) <= 1e-4
+    assert not all(dense for *_, dense in seen)      # the cls-token slice
 
 
 def test_convt2x2_route_follows_the_env(monkeypatch):

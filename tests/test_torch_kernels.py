@@ -11,7 +11,9 @@ import torch
 import jax.numpy as jnp
 
 from vsc_tpu_torch.ops import _cuda
-from vsc_tpu_torch.ops.attention_cuda import qkv_attention
+from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
+                                              short_seq_attention)
+from vsc_tpu_torch.ops.deconv_cuda import deconv2x2
 from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes
 from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
                                            sharpen_downscale_planar)
@@ -130,6 +132,13 @@ def test_attention_plain_matches_pallas(B, T, H, Dh):
     lambda m: forward_warp_eyes_planar(
         torch.zeros((1, 3, 4, 8), dtype=torch.uint8, device=m),
         torch.zeros((1, 4, 8), device=m), 2.0),
+    lambda m: short_seq_attention(*torch.zeros(
+        (1, 5, 3, 2, 16), device=m).unbind(2), 0.25),
+    lambda m: deconv2x2(torch.zeros((1, 8, 8, 128), device=m).permute(
+        0, 3, 1, 2), torch.zeros((128, 128, 2, 2), device=m)),
+    lambda m: deconv2x2(torch.zeros((1, 128, 8, 8), device=m),
+                        torch.zeros((128, 128, 2, 2), device=m),
+                        torch.zeros((128,), device=m)),
 ])
 def test_wrappers_never_fall_back_off_cpu(call):
     """Off the CPU a wrapper launches its kernel or raises: a tensor that is

@@ -3,28 +3,49 @@
 // Replaces: vsc_tpu/ops/attention_pallas.py  _kernel via short_seq_attention
 //   (reached from vsc_tpu/models/vit.py Attention for head layouts the qkv
 //   kernel cannot take; the port sends every dtype and head dim other than
-//   its qkv kernel's bf16 / 64 here).
+//   its qkv kernel's bf16 / 64 here, so the whole float32 DepthPro).
 // Computes: per (sample, head), full-row softmax attention with the qkv
-//   kernel's semantics: f32 logits (q . k) * scale, minus the row max over
-//   the T real keys, p = exp, row sum in f32, p rounded to the input dtype
-//   before the PV product, f32 accumulation, out = acc / sum in the input
-//   dtype. q, k and v are [B, T, H, Dh] views with a unit last stride and
-//   shared batch / token / head strides (strided views of the fused qkv
-//   projection, no copies); the output is a contiguous [B, T, H, Dh].
-//   float32 or bf16; Dh = 16, 32, ..., 128.
-// Bound on the H100: 4*T*T*Dh operations per (sample, head) against
-//   4*T*Dh elements; in f32 (no tensor cores: full fp32, no TF32) bound by
-//   the CUDA cores' 67 TFLOP/s, and by the same exp/max work per logit as
-//   the qkv kernel. The [T, T] logits never reach device memory.
-// Design: one block of 256 threads per (64 queries, head, sample); q, k
-//   and v staged in shared memory as f32 (dynamic, above 48 KB at large
-//   Dh). The exact semantics (p rounded at the FINAL row max) rule out an
-//   online softmax, so the block makes two passes over 64-key chunks of K:
-//   pass 1 takes the row max, pass 2 recomputes the logits, forms p and the
-//   row sum and accumulates PV. Plain FMAs on the CUDA cores for both
-//   dtypes, each thread a 4 x 4 tile of the logits (rows ty + 16i, keys
-//   tx + 16j) and a 4 x Dh/16 tile of the output; the ragged last chunk is
-//   zero-filled and masked. Tensor cores (bf16) are later work.
+//   kernel's semantics: f32 logits (q . k) * scale, the row max over the T
+//   real keys, p = exp(logit - final max), row sum in f32, p rounded to the
+//   input dtype before the PV product, f32 accumulation, out = acc / sum in
+//   the input dtype. q, k and v are [B, T, H, Dh] views with a unit last
+//   stride and shared batch / token / head strides, all multiples of 16
+//   bytes (strided views of the fused qkv projection, no copies); the
+//   output is a contiguous [B, T, H, Dh]. float32 or bf16; Dh = 16, 32,
+//   ..., 128; T <= kTmax.
+// Bound on the H100: 4*T*T*Dh operations per (sample, head) against 4*T*Dh
+//   elements: bf16 is bound by the bytes on paper (the tensor cores' share
+//   is ~0.1 ms at [72, 577, 16, 64]); f32 (full fp32, no TF32) by the CUDA
+//   cores' 67 TFLOP/s (1.49 ms at that shape).
+// Design: the exact semantics round p at the FINAL row max, which rules
+//   out an online softmax, and a first pass for the max would cost 1.5x
+//   the products. So one block takes 64 queries of one (sample, head); it
+//   computes each logit ONCE and keeps the block's
+//   [64, T] logits in shared memory as f32 (up to 161 KB at T = 640, so one
+//   block an SM) until the row max is final, then forms p from them for
+//   the PV product; K and V pass through shared memory in 32- or 64-key
+//   chunks, each copied once per block (cp.async).
+//   - bf16: eight warps, each 16 queries x half of every 64-key chunk;
+//     mma.sync m16n8k16 (f32 accumulation) for QK^T (q fragments kept in
+//     registers, k by ldmatrix) and for PV (p at the final max rounded to
+//     bf16 straight into the A fragments, v by ldmatrix.trans). The logits
+//     a warp writes are the ones it reads back, so only the row max (and at
+//     the end the row sums and partial outputs) cross warps. K then V
+//     chunks stream through a ring of two to four slots. What holds it
+//     back: each of the 10 query tiles of a (sample, head) streams the
+//     whole K and V from L2 (~1.9 GB at [72, 577, 16, 64]); without the
+//     copies the kernel takes ~70 % of its time.
+//   - float32: eight warps on the CUDA cores. In QK^T and PV each warp
+//     takes 32 rows and a quarter of the chunk's keys (or of the output's
+//     columns); each thread 4 rows x 4 keys (or Dh/16 columns), read with
+//     16-byte loads that touch 8 rows and 4 keys a warp: one shared-memory
+//     wavefront a load (16 FMAs a load; 8 x 8 thread tiles would need
+//     128-key chunks, which do not fit beside the logits). A quarter of
+//     the last chunk with no real key skips its products. The row max
+//     crosses the four quarters through shared memory; then p = exp(l -
+//     max) in place, all loads of a run before its exps and stores (loads
+//     and stores through one pointer stay in program order, so an
+//     interleaved loop serializes on them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,210 +55,570 @@
 namespace {
 
 constexpr int kQ = 64;        // queries per block
-constexpr int kK = 64;        // keys per chunk
-constexpr int kThreads = 256; // 16 x 16
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-// p as the PV product sees it: rounded to the input dtype
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kTmax = 640;    // keys the resident logits hold
 
 struct Strides {
   long long b, t, h;   // elements
 };
 
-// rows t0 .. t0 + 63 of one head's [T, Dh] slice -> dst (row stride ld),
-// zero beyond T
-template <typename T, int DH>
-__device__ __forceinline__ void stage(const T* __restrict__ src, Strides s,
-                                      int Tn, int t0, float* dst, int ld) {
-  for (int i = threadIdx.x; i < kK * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    const int t = t0 + r;
-    dst[r * ld + d] = t < Tn ? to_f32(src[(long long)t * s.t + d]) : 0.0f;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// this thread's 4 x 4 logits tile: rows ty + 16i of Qs, keys tx + 16j of Ks
+// ---- bf16: tensor cores (mma.sync) -------------------------------------
+constexpr int kKC = 64;                 // keys per chunk
+constexpr int kThreadsB = 256;          // 8 warps: 4 query groups x 2 halves
+// slots of the K/V ring (chunks in flight: one less), as many as fit
+// beside T = 640 logits
 template <int DH>
-__device__ __forceinline__ void logits(const float* Qs, const float* Ks,
-                                       int tx, int ty, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = Qs[(ty + 16 * i) * (DH + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) k[j] = Ks[(tx + 16 * j) * (DH + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(q[i], k[j], s[i][j]);
+__host__ __device__ constexpr int ring_slots() {
+  return DH <= 64 ? 4 : DH <= 96 ? 3 : 2;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// C[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows t0 .. t0 + 63 of one head's [T, DH] bf16 slice (a K or V chunk, or
+// the block's queries) -> dst (row stride DH + 8 elements) by cp.async;
+// rows >= T zero
+static_assert(kQ == kKC, "one copy routine for queries and chunks");
+template <int DH>
+__device__ __forceinline__ void load_rows_bf16(const __nv_bfloat16* src,
+                                               long long st, int T, int t0,
+                                               __nv_bfloat16* dst) {
+  constexpr int kC = DH / 8;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kKC * kC; i += kThreadsB) {
+    const int r = i / kC, c = i % kC;
+    __nv_bfloat16* d = dst + r * (DH + 8) + c * 8;
+    if (t0 + r < T)
+      cp_async16(d, src + (long long)(t0 + r) * st + c * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-split_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Tn,
-                       int heads, Strides st, float scale) {
-  constexpr int kE = DH / 16;        // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                              // [kQ][DH + 1]
-  float* Ks = Qs + kQ * (DH + 1);                // [kK][DH + 1]
-  float* Vs = Ks + kK * (DH + 1);                // [kK][DH]
-  float* Ps = Vs + kK * DH;                      // [kQ][kK + 1]
+template <int DH>
+__global__ void __launch_bounds__(kThreadsB, 1)
+split_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int T,
+                            int heads, Strides st, float scale) {
+  constexpr int kLd = DH + 8;             // bf16 row of Q, K, V (no ldmatrix
+                                          // bank conflicts)
+  constexpr int kNd = DH / 8;             // n8 tiles of the output
+  constexpr int kLo = DH + 4;             // f32 row of a partial output
+  constexpr int kNS = ring_slots<DH>();
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tpad = (T + kKC - 1) / kKC * kKC;
+  const int lds = tpad + 8;               // f32 logits row (== 8 mod 32)
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = Qs + kQ * kLd;    // kNS slots of kKC x kLd
+  float* red = reinterpret_cast<float*>(ring + kNS * kKC * kLd);
+                                          // [2][64] row max, then row sums
+  float* S = red + 2 * kQ;                // [64][lds], at the end [64][kLo]
 
   const int q0 = blockIdx.x * kQ, h = blockIdx.y, n = blockIdx.z;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qg = warp & 3, kh = warp >> 2;
+  const int g = lane / 4, tq = lane % 4;
+  const int row0 = 16 * qg + g;           // this thread's rows: +0, +8
   const long long off = (long long)n * st.b + (long long)h * st.h;
-  const T* qb = q + off;
-  const T* kb = k + off;
-  const T* vb = v + off;
+  const __nv_bfloat16* qb = q + off;
+  const __nv_bfloat16* kb = k + off;
+  const __nv_bfloat16* vb = v + off;
+  const int nc = tpad / kKC;
+  float* Sw = S + row0 * lds;             // this thread's first row
 
-  stage<T, DH>(qb, st, Tn, q0, Qs, DH + 1);
-
-  // pass 1: row max of the scaled logits over the real keys
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < Tn; k0 += kK) {
-    __syncthreads();
-    stage<T, DH>(kb, st, Tn, k0, Ks, DH + 1);
-    __syncthreads();
-    float s[4][4];
-    logits<DH>(Qs, Ks, tx, ty, s);
+  // step x < nc copies K chunk x, step nc + x V chunk x, into slot x % kNS
+  auto load_step = [&](int x) {
+    load_rows_bf16<DH>(x < nc ? kb : vb, st.t, T, (x < nc ? x : x - nc) * kKC,
+                       ring + (x % kNS) * kKC * kLd);
+  };
+  load_rows_bf16<DH>(qb, st.t, T, q0, Qs);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tx + 16 * j < Tn)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], __fmul_rn(s[i][j], scale));
+  for (int x = 0; x < kNS - 1; ++x) {
+    if (x < 2 * nc) load_step(x);
+    cp_commit();
   }
-  // the 16 lanes of one ty hold one row's partial maxima
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
 
-  // pass 2: p = exp(l - m) (row sum in f32, p rounded to T), O += P . V
-  float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float acc[4][kE];
+  uint32_t qa[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+  float o[kNd][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kNd; ++j)
 #pragma unroll
-    for (int e = 0; e < kE; ++e) acc[i][e] = 0.0f;
-  for (int k0 = 0; k0 < Tn; k0 += kK) {
-    __syncthreads();
-    stage<T, DH>(kb, st, Tn, k0, Ks, DH + 1);
-    stage<T, DH>(vb, st, Tn, k0, Vs, DH);
-    __syncthreads();
-    float s[4][4];
-    logits<DH>(Qs, Ks, tx, ty, s);
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+
+  for (int s = 0; s < 2 * nc; ++s) {
+    cp_wait<kNS - 2>();
+    __syncthreads();        // step s landed; step s - 1's slot read by all
+    if (s + kNS - 1 < 2 * nc) load_step(s + kNS - 1);
+    cp_commit();
+    const __nv_bfloat16* buf = ring + (s % kNS) * kKC * kLd;
+    if (s == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = k0 + tx + 16 * j < Tn;
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldsm_x4(qa[kk], Qs + (16 * qg + lane % 16) * kLd + kk * 16 +
+                            (lane / 16) * 8);
+    }
+    if (s < nc) {
+      // S[16 x 32] = Q . K_half^T, scaled, keys >= T to -inf, to shared
+      const int key0 = s * kKC + kh * 32;
+      float c[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = 0.0f;
-        if (ok) {
-          p = expf(__fsub_rn(__fmul_rn(s[i][j], scale), m[i]));
-          l[i] = __fadd_rn(l[i], p);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, buf + (kh * 32 + jp * 16 + lane % 8 + (lane / 16) * 8) *
+                               kLd + kk * 16 + ((lane / 8) % 2) * 8);
+          mma16816(c[2 * jp], qa[kk], b[0], b[1]);
+          mma16816(c[2 * jp + 1], qa[kk], b[2], b[3]);
         }
-        Ps[(ty + 16 * i) * (kK + 1) + tx + 16 * j] = round_to(p, T());
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = key0 + 8 * j + 2 * tq;
+        float l[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          l[e] = key + (e & 1) < T ? __fmul_rn(c[j][e], scale) : -INFINITY;
+          m[e >> 1] = fmaxf(m[e >> 1], l[e]);
+        }
+        *reinterpret_cast<float2*>(Sw + key) = make_float2(l[0], l[1]);
+        *reinterpret_cast<float2*>(Sw + 8 * lds + key) =
+            make_float2(l[2], l[3]);
+      }
+    } else {
+      if (s == nc) {        // the final row max: both halves of the keys
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+        }
+        if (tq == 0) {
+          red[kh * kQ + row0] = m[0];
+          red[kh * kQ + row0 + 8] = m[1];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          m[hh] = fmaxf(red[row0 + 8 * hh], red[kQ + row0 + 8 * hh]);
+      }
+      // O += P . V_half: p at the final max (f32 sum), bf16 A fragments
+      const int c = s - nc;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int key = c * kKC + kh * 32 + ks * 16 + 2 * tq;
+        uint32_t pa[4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {        // (g, k), (g+8, k), (g, k+8), ..
+          const float2 l = *reinterpret_cast<const float2*>(
+              Sw + (f & 1) * 8 * lds + key + (f >> 1) * 8);
+          const float mm = m[f & 1];
+          const float p0 = __expf(__fsub_rn(l.x, mm));
+          const float p1 = __expf(__fsub_rn(l.y, mm));
+          sum[f & 1] = __fadd_rn(__fadd_rn(sum[f & 1], p0), p1);
+          pa[f] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+        for (int jp = 0; jp < kNd / 2; ++jp) {
+          uint32_t b[4];
+          ldsm_x4_t(b, buf + (kh * 32 + ks * 16 + lane % 8 +
+                              ((lane / 8) % 2) * 8) * kLd +
+                           jp * 16 + (lane / 16) * 8);
+          mma16816(o[2 * jp], pa, b[0], b[1]);
+          mma16816(o[2 * jp + 1], pa, b[2], b[3]);
+        }
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kK; ++kk) {
-      float p[4], vv[kE];
+  }
+  __syncthreads();          // every warp is done with the logits
+
+  // the two key halves: sums and partial outputs of half 1 to shared
+  // memory (over the logits, no longer read), added to half 0's
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * (kK + 1) + kk];
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] = __fadd_rn(sum[hh], __shfl_xor_sync(0xffffffffu, sum[hh], 1));
+    sum[hh] = __fadd_rn(sum[hh], __shfl_xor_sync(0xffffffffu, sum[hh], 2));
+  }
+  float* Ox = S;                            // [64][kLo]
+  if (kh == 1) {
+    if (tq == 0) {
+      red[kQ + row0] = sum[0];
+      red[kQ + row0 + 8] = sum[1];
+    }
 #pragma unroll
-      for (int e = 0; e < kE; ++e) vv[e] = Vs[kk * DH + tx + 16 * e];
+    for (int j = 0; j < kNd; ++j) {
+      *reinterpret_cast<float2*>(Ox + row0 * kLo + 8 * j + 2 * tq) =
+          make_float2(o[j][0], o[j][1]);
+      *reinterpret_cast<float2*>(Ox + (row0 + 8) * kLo + 8 * j + 2 * tq) =
+          make_float2(o[j][2], o[j][3]);
+    }
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh, t = q0 + r;
+      const float l = __fadd_rn(sum[hh], red[kQ + r]);
+      if (t >= T) continue;
+      __nv_bfloat16* orow = out + (((long long)n * T + t) * heads + h) * DH;
+#pragma unroll
+      for (int j = 0; j < kNd; ++j) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(Ox + r * kLo + 8 * j + 2 * tq);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(
+                __fdiv_rn(__fadd_rn(o[j][2 * hh], x.x), l),
+                __fdiv_rn(__fadd_rn(o[j][2 * hh + 1], x.y), l));
+      }
+    }
+  }
+}
+
+template <int DH>
+int smem_bf16(int T) {
+  const int tpad = (T + kKC - 1) / kKC * kKC;
+  const int s_floats = kQ * (tpad + 8 > DH + 4 ? tpad + 8 : DH + 4);
+  return (kQ + ring_slots<DH>() * kKC) * (DH + 8) * 2 +
+         (2 * kQ + s_floats) * 4;
+}
+
+// ---- float32: CUDA cores -----------------------------------------------
+constexpr int kThreadsF = 256;   // 8 warps: 2 row halves x 4 quarters
+
+template <int DH>
+__host__ __device__ constexpr int chunk_f32() { return DH <= 64 ? 64 : 32; }   // keys a chunk
+
+// rows t0 .. t0 + rows - 1 of one head's [T, DH] f32 slice -> dst (row
+// stride ld) by cp.async; rows >= T zero
+template <int DH>
+__device__ __forceinline__ void load_rows_f32(const float* src, long long st,
+                                              int T, int t0, int rows,
+                                              int ld, float* dst) {
+  constexpr int kC = DH / 4;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * kC; i += kThreadsF) {
+    const int r = i / kC, c = i % kC;
+    float* d = dst + r * ld + c * 4;
+    if (t0 + r < T)
+      cp_async16(d, src + (long long)(t0 + r) * st + c * 4);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsF, 1)
+split_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int T, int heads,
+                           Strides st, float scale) {
+  constexpr int KC = chunk_f32<DH>();
+  constexpr int QS = KC / 4;      // keys of a chunk a warp's QK takes
+  constexpr int NJ = QS / 4;      // ... a thread: kg + 4 j
+  constexpr int CW = DH / 16;     // output columns a thread: cg*CW + e
+  constexpr int kLd = DH + 4;     // Q, K, V rows: 16-byte aligned, and the
+                                  // eight rows (or four keys) a warp reads
+                                  // at once fall in distinct banks
+  extern __shared__ __align__(16) float smf[];
+  const int tpad = (T + KC - 1) / KC * KC;
+  const int lds = tpad + 4;       // logits row (== 4 mod 32)
+  float* Qs = smf;                // [64][kLd]; after QK: row max partials
+                                  // [4][64], then row sums [64]
+  float* ring = Qs + kQ * kLd;    // 2 slots of [KC][kLd]
+  float* S = ring + 2 * KC * kLd; // [64][lds]
+
+  const int q0 = blockIdx.x * kQ, h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // QK and PV: each warp 32 rows (half rh) x a quarter (keys of a chunk,
+  // or output columns); each thread 4 rows (rg + 8 i) x 4 keys (kg + 4 j)
+  // or CW columns. A warp's loads then touch 8 rows and 4 keys or column
+  // groups: one 128-byte wavefront each, where 16 distinct rows took two.
+  const int rh = warp >> 2, wq = warp & 3;
+  const int rg = lane >> 2, kg = lane & 3;
+  const int r0 = 32 * rh + rg;    // rows r0 + 8 i
+  const long long off = (long long)n * st.b + (long long)h * st.h;
+  const float* kb = k + off;
+  const float* vb = v + off;
+  const int nc = tpad / KC;
+  // step x < nc copies K chunk x, step nc + x V chunk x, into slot x & 1
+  auto load_step = [&](int x) {
+    load_rows_f32<DH>(x < nc ? kb : vb, st.t, T, (x < nc ? x : x - nc) * KC,
+                      KC, kLd, ring + (x & 1) * KC * kLd);
+  };
+
+  load_rows_f32<DH>(q + off, st.t, T, q0, kQ, kLd, Qs);
+  load_step(0);
+  cp_commit();
+
+  float m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY;
+  float acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < CW; ++e) acc[i][e] = 0.0f;
+  const int t4 = (T + 3) & ~3;    // keys the PV product reads
+
+  for (int s = 0; s < 2 * nc; ++s) {
+    cp_wait<0>();
+    __syncthreads();        // step s landed; step s - 1's slot read by all
+    if (s + 1 < 2 * nc) load_step(s + 1);
+    cp_commit();
+    const float* buf = ring + (s & 1) * KC * kLd;
+    if (s < nc) {
+      // each logit once, 16-byte loads along d; scaled, keys >= T to -inf,
+      // to S; the row max. A quarter with no real key is skipped (its
+      // logits are never read).
+      const int key0 = s * KC + QS * wq;
+      if (key0 >= T) continue;
+      float c[4][NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int e = 0; e < kE; ++e) acc[i][e] = fmaf(p[i], vv[e], acc[i][e]);
+        for (int j = 0; j < NJ; ++j) c[i][j] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DH; d += 4) {
+        float4 a[4], b[NJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(Qs + (r0 + 8 * i) * kLd +
+                                                  d);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          b[j] = *reinterpret_cast<const float4*>(
+              buf + (QS * wq + kg + 4 * j) * kLd + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
+            c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
+            c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
+            c[i][j] = fmaf(a[i].w, b[j].w, c[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int key = key0 + kg + 4 * j;
+          const float x = key < T ? __fmul_rn(c[i][j], scale) : -INFINITY;
+          m[i] = fmaxf(m[i], x);
+          S[(r0 + 8 * i) * lds + key] = x;
+        }
+      continue;
+    }
+    if (s == nc) {
+      // the final row max: over the 4 lanes (kg) of a warp, then the 4
+      // quarters through shared memory (Q is no longer read)
+      float* red = Qs;                     // [4][64] partial maxima
+      float* lsum = Qs + 4 * kQ;           // [64] row sums
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+        if (kg == 0) red[wq * kQ + r0 + 8 * i] = m[i];
+      }
+      __syncthreads();
+      // p = exp(l - m) in place with the f32 row sums: rows ty + 16 i, 4-key
+      // runs 4 tx + 64 k; all loads of a run before its exps and all exps
+      // before its stores (loads and stores through one pointer stay in
+      // program order, so an interleaved loop serializes on them)
+      const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+      float mr[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        mr[i] = fmaxf(fmaxf(red[r], red[kQ + r]),
+                      fmaxf(red[2 * kQ + r], red[3 * kQ + r]));
+        l[i] = 0.0f;
+      }
+      for (int key = 4 * tx; key < t4; key += 64) {
+        float4 x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i] = *reinterpret_cast<const float4*>(S + (ty + 16 * i) * lds +
+                                                  key);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i].x = expf(__fsub_rn(x[i].x, mr[i]));
+          x[i].y = expf(__fsub_rn(x[i].y, mr[i]));
+          x[i].z = expf(__fsub_rn(x[i].z, mr[i]));
+          x[i].w = expf(__fsub_rn(x[i].w, mr[i]));
+          l[i] = __fadd_rn(__fadd_rn(l[i], x[i].x), __fadd_rn(x[i].y,
+                                                              x[i].z));
+          l[i] = __fadd_rn(l[i], x[i].w);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(S + (ty + 16 * i) * lds + key) = x[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], o));
+        if (tx == 0) lsum[ty + 16 * i] = l[i];
+      }
+      __syncthreads();      // p of every row before any thread reads it
+    }
+    // O += P . V_chunk: 4 rows x CW columns a thread, p read 4 keys at a
+    // time, up to the last real key (p of keys >= T is 0)
+    const int key0 = (s - nc) * KC;
+    const int kn = min(KC, t4 - key0);
+    const int c0 = wq * (DH / 4) + kg * CW;
+#pragma unroll 2
+    for (int kk = 0; kk < kn; kk += 4) {
+      float p[4][4], vv[4][CW];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(p[i]) = *reinterpret_cast<const float4*>(
+            S + (r0 + 8 * i) * lds + key0 + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = buf + (kk + u) * kLd + c0;
+        if constexpr (CW % 4 == 0) {
+#pragma unroll
+          for (int e = 0; e < CW; e += 4)
+            *reinterpret_cast<float4*>(vv[u] + e) =
+                *reinterpret_cast<const float4*>(vr + e);
+        } else {
+#pragma unroll
+          for (int e = 0; e < CW; ++e) vv[u][e] = vr[e];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < CW; ++e)
+            acc[i][e] = fmaf(p[i][u], vv[u][e], acc[i][e]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], o));
 
+  const float* lsum = Qs + 4 * kQ;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tn) continue;
-    T* orow = out + (((long long)n * Tn + t) * heads + h) * DH;
+    const int r = r0 + 8 * i, t = q0 + r;
+    if (t >= T) continue;
+    const float l = lsum[r];
+    float* orow = out + (((long long)n * T + t) * heads + h) * DH + wq *
+                  (DH / 4) + kg * CW;
+    if constexpr (CW % 4 == 0) {
 #pragma unroll
-    for (int e = 0; e < kE; ++e)
-      store(orow + tx + 16 * e, __fdiv_rn(acc[i][e], l[i]));
+      for (int e = 0; e < CW; e += 4)
+        *reinterpret_cast<float4*>(orow + e) = make_float4(
+            __fdiv_rn(acc[i][e], l), __fdiv_rn(acc[i][e + 1], l),
+            __fdiv_rn(acc[i][e + 2], l), __fdiv_rn(acc[i][e + 3], l));
+    } else {
+#pragma unroll
+      for (int e = 0; e < CW; ++e) orow[e] = __fdiv_rn(acc[i][e], l);
+    }
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Tn, int heads, Strides st, float scale, cudaStream_t s) {
-  const int smem =
-      (int)sizeof(float) * (kQ * (DH + 1) + kK * (DH + 1) + kK * DH +
-                            kQ * (kK + 1));
-  static bool opted_in = false;   // one attribute call per instantiation
-  if (!opted_in) {
+template <int DH>
+int smem_f32(int T) {
+  constexpr int KC = chunk_f32<DH>();
+  const int tpad = (T + KC - 1) / KC * KC;
+  return ((kQ + 2 * KC) * (DH + 4) + kQ * (tpad + 4)) * 4;
+}
+
+template <int DH>
+int dispatch_dh(const void* q, const void* k, const void* v, void* out,
+                int B, int T, int heads, Strides st, float scale, int bf16,
+                cudaStream_t s) {
+  const dim3 grid((T + kQ - 1) / kQ, heads, B);
+  if (bf16) {
+    const int smem = smem_bf16<DH>(T);
     const cudaError_t e = cudaFuncSetAttribute(
-        split_attention_kernel<T, DH>,
+        split_attention_bf16_kernel<DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    split_attention_bf16_kernel<DH><<<grid, kThreadsB, smem, s>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, T, heads, st, scale);
+  } else {
+    const int smem = smem_f32<DH>(T);
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_attention_f32_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    split_attention_f32_kernel<DH><<<grid, kThreadsF, smem, s>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, T,
+        heads, st, scale);
   }
-  dim3 grid((Tn + kQ - 1) / kQ, heads, B);
-  split_attention_kernel<T, DH><<<grid, kThreads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Tn, heads, st, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Tn, int heads, int dh, Strides st, float scale,
-             cudaStream_t s) {
+}  // namespace
+
+// strides in elements, shared by q, k and v (pointers and strides 16-byte
+// aligned); bf16 selects __nv_bfloat16 (else float32) for q, k, v and out
+extern "C" int vsc_split_attention(const void* q, const void* k,
+                                   const void* v, void* out, int B, int T,
+                                   int heads, int dh, long long sb,
+                                   long long st, long long sh, float scale,
+                                   int bf16, void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || T > kTmax || heads < 1 ||
+      heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Strides s = {sb, st, sh};
+  cudaStream_t cs = (cudaStream_t)stream;
   switch (dh) {
-#define VSC_DH(D) \
-    case D: return launch<T, D>(q, k, v, out, B, Tn, heads, st, scale, s);
+#define VSC_DH(D)                                                     \
+    case D:                                                           \
+      return dispatch_dh<D>(q, k, v, out, B, T, heads, s, scale, bf16, cs);
     VSC_DH(16) VSC_DH(32) VSC_DH(48) VSC_DH(64)
     VSC_DH(80) VSC_DH(96) VSC_DH(112) VSC_DH(128)
 #undef VSC_DH
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// strides in elements, shared by q, k and v; bf16 selects __nv_bfloat16
-// (else float32) for q, k, v and out
-extern "C" int vsc_split_attention(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Tn,
-                                   int heads, int dh, long long sb,
-                                   long long st, long long sh, float scale,
-                                   int bf16, void* stream) {
-  if (B < 1 || B > 65535 || Tn < 1 || heads < 1 || heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  const Strides s = {sb, st, sh};
-  cudaStream_t cs = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, Tn, heads, dh, s,
-                                        scale, cs)
-              : dispatch<float>(q, k, v, out, B, Tn, heads, dh, s, scale,
-                                cs);
 }

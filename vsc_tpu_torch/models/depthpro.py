@@ -18,8 +18,10 @@ names of Apple's ``depth_pro.pt`` as ``vsc_tpu/models/convert.py``'s
   head.{0,1,2,4}
 
 The coarsest fusion block has no skip input, so (as in the JAX parameter
-tree) it has no ``resnet1``. Tensors are NCHW inside; ``DepthPro.forward``
-takes the JAX package's [B, S, S, 3] layout. Convolutions are
+tree) it has no ``resnet1``. Tensors have the [N, C, H, W] shape inside
+and channels-last memory: ``DepthPro.forward`` takes the JAX package's
+[B, S, S, 3] layout and permutes it (``_tokens_to_map`` does the same to
+the tokens), and cuDNN's convolutions keep that format. Convolutions are
 ``F.conv2d`` / ``F.conv_transpose2d`` (the JAX package leaves them to XLA),
 except that ``VSC_TPU_PALLAS_DECONV=1`` sends every ``ConvT2x2`` site the
 guard ``deconv2x2_supported`` accepts to the deconv kernel
@@ -37,7 +39,8 @@ import torch
 from torch import nn
 
 from vsc_tpu_torch.models.vit import ViT, ViTConfig
-from vsc_tpu_torch.ops.deconv_cuda import deconv2x2, deconv2x2_supported
+from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_supported,
+                                           pack_weight)
 
 __all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV"]
 
@@ -116,7 +119,11 @@ class ConvT2x2(nn.Module):
     parameters (``weight`` [Cin, Cout, 2, 2], optional ``bias`` [Cout]), so
     checkpoints and models/convert.py carry across unchanged. cuDNN's
     transposed convolution by default; the deconv kernel under
-    ``VSC_TPU_PALLAS_DECONV=1`` where the guard accepts the input."""
+    ``VSC_TPU_PALLAS_DECONV=1`` where the guard accepts the input. Both
+    read the channels-last activations as they come and return a
+    channels-last output; the kernel's packed weight is kept here, packed
+    again when the weight changes (its version, storage, dtype or
+    device)."""
 
     def __init__(self, cin: int, cout: int, bias: bool = False):
         super().__init__()
@@ -128,11 +135,20 @@ class ConvT2x2(nn.Module):
         if self.bias is not None:
             bound = 1.0 / math.sqrt(cout * 4)
             nn.init.uniform_(self.bias, -bound, bound)
+        self._packed = (None, None)
+
+    def packed_weight(self):
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.dtype, w.device)
+        if self._packed[0] != key:
+            self._packed = (key, pack_weight(w.detach()))
+        return self._packed[1]
 
     def forward(self, x):
         if (os.environ.get(DECONV_ENV, "0") == "1"
                 and deconv2x2_supported(x, self.weight.shape[1])):
-            return deconv2x2(x.contiguous(), self.weight, self.bias)
+            return deconv2x2(x, self.weight, self.bias,
+                             packed=self.packed_weight())
         return nn.functional.conv_transpose2d(x, self.weight, self.bias,
                                               stride=2)
 

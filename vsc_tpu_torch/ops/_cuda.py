@@ -77,8 +77,9 @@ _SIGNATURES = {
     # eye4, out, quarter (or null), space weights(host), inv2sc, B, H, W,
     # radius, stream
     "vsc_bilateral_pool": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
-    # x, weight, bias (or null), out, N, C, H, W, O, bf16, stream
-    "vsc_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x (channels-last), packed weight, bias (or null), out, N, C, H, W, O,
+    # batch stride of x in elements, bf16, stream
+    "vsc_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
     # q, k, v, out, B, T, heads, head dim, strides (batch, token, head) of
     # q/k/v in elements, scale, bf16, stream
     "vsc_split_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
@@ -176,12 +177,13 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors) -> None:
+def require_cuda(name: str, *tensors, contiguous: bool = True) -> None:
     """Kernel wrappers take CPU tensors (plain version) or CUDA tensors
-    (the kernel); anything else raises rather than falling back."""
+    (the kernel); anything else raises rather than falling back. With
+    ``contiguous`` the tensors must also be NCHW-contiguous."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got a tensor "
                              f"on {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")

@@ -20,7 +20,9 @@ row sum):
                        [B, T, H, Dh], here strided views of the fused
                        projection (no copies). Kernel source:
                        ``csrc/attention_split.cu`` (float32 or bf16, head
-                       dims 16, 32, ..., 128).
+                       dims 16, 32, ..., 128, at most ``SPLIT_MAX_T``
+                       tokens: a block's [64, T] f32 logits stay in shared
+                       memory).
 
 ``attention_route`` picks between them by dtype and head dim: the qkv
 kernel for bf16 at head dim 64 (the production DepthPro), the split kernel
@@ -38,11 +40,12 @@ from vsc_tpu_torch.ops import _cuda
 
 __all__ = ["qkv_attention", "qkv_attention_plain", "short_seq_attention",
            "short_seq_attention_plain", "attention_route", "SPLIT_HEAD_DIMS",
-           "QKV_MAX_T"]
+           "QKV_MAX_T", "SPLIT_MAX_T"]
 
 HEAD_DIM = 64
 QKV_MAX_T = 640     # the qkv kernel's key range (csrc/attention.cu kTmax)
 SPLIT_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+SPLIT_MAX_T = 640   # the split kernel's key range (csrc/attention_split.cu)
 _SPLIT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -74,7 +77,8 @@ def short_seq_attention(q, k, v, scale: float):
     """q, k, v [B, T, H, Dh] (views with a unit last stride and one set of
     batch / token / head strides, e.g. of the fused qkv projection) ->
     contiguous [B, T, H, Dh]. CPU tensors: the plain version; CUDA tensors:
-    the kernel (float32 or bf16, Dh in ``SPLIT_HEAD_DIMS``)."""
+    the kernel (float32 or bf16, Dh in ``SPLIT_HEAD_DIMS``, T <=
+    ``SPLIT_MAX_T``, pointers and strides on 16-byte boundaries)."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return short_seq_attention_plain(q, k, v, scale)
     B, T, H, Dh = q.shape
@@ -91,7 +95,17 @@ def short_seq_attention(q, k, v, scale: float):
         raise ValueError(f"short_seq_attention: the kernel takes float32 or "
                          f"bfloat16 at head dims {SPLIT_HEAD_DIMS}, got "
                          f"{q.dtype} at {Dh}")
-    out =torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
+    if T > SPLIT_MAX_T:
+        raise ValueError(f"short_seq_attention: the kernel takes at most "
+                         f"{SPLIT_MAX_T} tokens, got {T}")
+    size = q.element_size()
+    if any(x.data_ptr() % 16 for x in (q, k, v)) or any(
+            s * size % 16 for s in q.stride()[:3]):
+        # the kernel copies q, k and v rows as 16-byte vectors
+        raise ValueError("short_seq_attention: q, k and v must start on "
+                         "16-byte boundaries, with strides of whole 16-byte "
+                         "units")
+    out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     sb, st, sh, _ = q.stride()
     code = _cuda.library().vsc_split_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
