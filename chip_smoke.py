@@ -19,8 +19,10 @@ Drives the port's streaming main path on the card and checks it:
      3.35 TB/s or operations at the peak for their type, whichever is
      larger; the postprocess's operations include the fill and polish its
      pair's holes need, and the share of its tiles that take the hole path
-     must lie strictly between 0 and 1, so both paths are checked); then
-     the super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
+     must lie strictly between 0 and 1, so both paths are checked); the
+     attention past the qkv kernel's 640 tokens (DepthPro's 1025 at input
+     2048, and 4097), on the split kernel's two-pass route; then the
+     super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
      that size;
   3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
      SBS) on 1080p batches at ``StereoParams()`` defaults (super_sampling 3,
@@ -35,6 +37,8 @@ Drives the port's streaming main path on the card and checks it:
      kernel (VSC_TPU_PALLAS_DECONV=1, u8 depth against the cuDNN route's
      under a bound that a deliberately broken deconv exceeds) and float32
      DepthPro (VSC_TPU_DEPTH_DTYPE=float32, the split-q/k/v attention);
+     last one 1-frame batch of DepthPro at input 2048 (every attention on
+     the two-pass route), counters reset around it;
   4. the CLI: ``stream_convert.run`` on a short synthetic clip, when the
      media engine and tqdm are present.
 
@@ -491,8 +495,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
     from vsc_tpu_torch.ops.resize import resize
     from vsc_tpu_torch.ops.upsample_cuda import (upsample_bilinear_int,
                                                  upsample_bilinear_int_plain)
-    from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes_planar,
-                                             forward_warp_eyes_planar_plain)
+    from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes_planar_plain,
+                                             forward_warp_pair_planar)
     dev = torch.device("cuda")
     p = stereo.StereoParams()
     s = stereo.sbs_shapes(H, W, p)
@@ -543,24 +547,25 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                 **least_time(nbytes(up_d, dn),
                              f32=(4.0 * k + 4.0) * dn.numel()))
     check(err <= 1e-4, f"blur disagrees: {err}")
+    # the warp writes both eyes into the pair in place (the main path's
+    # entry), held against the plain version's eyes side by side
     img_cf = up.reshape(B, 3, UH, UW)
-    eyes = forward_warp_eyes_planar(img_cf, dn, p.max_disparity)
-    eyes_p = forward_warp_eyes_planar_plain(img_cf, dn, p.max_disparity)
-    err = max(exact("warp_planar_u8", a, b) for a, b in zip(eyes, eyes_p))
-    res["warp_planar_u8"].update(
-        max_abs_err=err, holes=float(1 - eyes[1][3].float().mean()),
-        ms=time_ms(lambda: forward_warp_eyes_planar(img_cf, dn,
-                                                    p.max_disparity)),
-        plain_ms=time_ms(lambda: forward_warp_eyes_planar_plain(
-            img_cf, dn, p.max_disparity), reps=2),
-        # ~8 operations per candidate shift, floor(max_disparity) + 3
-        # candidates per pixel and eye
-        **least_time(nbytes(img_cf, dn, *eyes), f32=8.0 * 2 * (
-            int(p.max_disparity) + 3) * dn.numel()))
+    pair = forward_warp_pair_planar(img_cf, dn, p.max_disparity)
+    want = torch.cat(forward_warp_eyes_planar_plain(img_cf, dn,
+                                                    p.max_disparity), dim=1)
+    err = exact("warp_planar_u8", pair, want,
+                holes=float(1 - pair[3, B:].float().mean()),
+                ms=time_ms(lambda: forward_warp_pair_planar(
+                    img_cf, dn, p.max_disparity)),
+                plain_ms=time_ms(lambda: forward_warp_eyes_planar_plain(
+                    img_cf, dn, p.max_disparity), reps=2),
+                # the scatter: ~10 operations to place a source's two
+                # candidates and ~10 to read an output's winner back, per
+                # eye (the gather it replaced: ~8 per candidate shift,
+                # floor(max_disparity) + 3 shifts per pixel and eye)
+                **least_time(nbytes(img_cf, dn, pair), f32=40.0 * dn.numel()))
     check(err == 0, f"planar-u8 warp disagrees: {err}")
-    del eyes_p
-    pair = torch.cat(eyes, dim=1)
-    del eyes
+    del want
 
     # pools: eye4 f = 2 (6090 % 4 != 0), edge-even, f32 2x2; an odd W'
     # (2160 x 3840: 11847) takes the torch glue, as the JAX package does
@@ -828,7 +833,69 @@ def phase_depth_kernels(B: int):
         if f32 and Dh == 64:
             res["attention_split"] = r      # the float32 DepthPro's shape
         del qkv, q, k, v, o, o_p
+    attention_two_pass(B)
     return res
+
+
+def attention_two_pass(B: int) -> None:
+    """Attention beyond the qkv kernel's 640 tokens: the token counts of
+    DepthPro at input 2048 (tiles of 512: [36B, 1025] tokens) and 4096
+    (4097 tokens), through qkv_attention (bf16, on the split kernel's
+    two-pass route) and short_seq_attention (f32), against the plain
+    versions, with SDPA's time beside them."""
+    import torch
+    import torch.nn.functional as F
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
+                                                  qkv_attention_plain,
+                                                  short_seq_attention,
+                                                  short_seq_attention_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(22)
+    H, Dh, scale = 16, 64, 0.125
+    for dtype, N, T in ((torch.bfloat16, 36 * B, 1025),
+                        (torch.float32, 36 * B, 1025),
+                        (torch.bfloat16, 2, 4097)):
+        qkv = torch.randn((N, T, 3 * H * Dh), generator=g, device=dev).to(
+            dtype)
+        q, k, v = qkv.view(N, T, 3, H, Dh).unbind(2)
+        bf16 = dtype == torch.bfloat16
+        if bf16:
+            fn = lambda: qkv_attention(qkv, H, scale)          # noqa: E731
+            o_p = qkv_attention_plain(qkv, H, scale).float()
+            plain = lambda: qkv_attention_plain(qkv, H, scale)  # noqa: E731
+        else:
+            fn = lambda: short_seq_attention(q, k, v, scale)   # noqa: E731
+            o_p = short_seq_attention_plain(q, k, v, scale).float()
+            plain = lambda: short_seq_attention_plain(        # noqa: E731
+                q, k, v, scale)
+        before = dict(_cuda.ROUTE_LAUNCHES)
+        o = fn().float()
+        check(_cuda.ROUTE_LAUNCHES["split_two_pass"]
+              == before["split_two_pass"] + 1,
+              f"attention at {T} tokens did not take the two-pass route")
+        err = float((o.reshape(o_p.shape) - o_p).abs().max())
+        mean_err = float((o.reshape(o_p.shape) - o_p).abs().mean())
+        del o, o_p
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ops = 4.0 * T * T * Dh * N * H
+        r = dict(ms=time_ms(fn, reps=3), plain_ms=time_ms(plain, reps=1),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, scale=scale), reps=3),
+                 **least_time(nbytes(qkv) + nbytes(qkv) // 3,
+                              **({"bf16_tensor": ops,
+                                  "f32": 5.0 * T * T * N * H} if bf16 else
+                                 {"f32": ops + 5.0 * T * T * N * H})))
+        ok = (err <= 8e-3 and mean_err <= 1e-5) if bf16 else err <= 2e-5
+        name = (f"{'qkv_attention' if bf16 else 'short_seq_attention'} "
+                f"{str(dtype)[6:]} [{N}, {T}, {3 * H * Dh}], two-pass route")
+        log(f"phase 2: {name}: max_abs_err {err:.3g}, mean {mean_err:.3g} "
+            f"[{'max 8e-3, mean 1e-5' if bf16 else 'max 2e-5'}], kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, sdpa "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+        check(ok, f"{name} disagrees: max {err}, mean {mean_err}")
+        del qkv, q, k, v, qt, kt, vt
 
 
 def drive(frames, depth_fn, params):
@@ -1086,6 +1153,7 @@ def phase_routes(B: int, depth_fn, frames, params, t_depth: float,
 
 def phase_slice(B: int, batches: int, card: str):
     import torch
+    from vsc_tpu_torch.ops import _cuda
     from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
     from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
     from vsc_tpu_torch.pipeline.stream_convert import render_sbs
@@ -1107,7 +1175,8 @@ def phase_slice(B: int, batches: int, card: str):
     # the main path at the defaults
     outs, batch_s, launches = drive(frames, depth_fn, params)
     log(f"phase 3: launches over {batches} batches of {B} at the defaults "
-        f"(super_sampling 3): {launches}")
+        f"(super_sampling 3): {launches}; split attention by route: "
+        f"{_cuda.ROUTE_LAUNCHES}")
     for o in outs:
         check(tuple(o.shape) == (B, 1080, 3840, 3), o.shape)
         check(o.dtype == torch.uint8, o.dtype)
@@ -1149,7 +1218,46 @@ def phase_slice(B: int, batches: int, card: str):
     small_sbs_check(params, dev)
     launches.update(phase_routes(B, depth_fn, frames, params, t_depth, t_sbs,
                                  card, default_groups))
+    del depth_fn
+    depth_2048(card)
     return launches
+
+
+def depth_2048(card: str) -> None:
+    """One batch of one 1080p frame through full-width DepthPro at input
+    2048 (tiles of 512: 1025 tokens, past the qkv kernel's 640, so every
+    attention takes the split kernel's two-pass route), counters reset just
+    before and read just after."""
+    import torch
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    fn = build_depth_fn("depthpro", 2048, 1080, 1920, False, device=dev,
+                        seed=0)
+    frame = frames_u8(1, dev, 30)
+    fn(frame)                                          # warm-up
+    torch.cuda.synchronize()
+    log(f"phase 3: full-width DepthPro at input 2048 (bf16) built and "
+        f"warmed in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    depth = fn(frame)
+    torch.cuda.synchronize()
+    launches, routes = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 3: launches of one 1-frame batch at input 2048: {launches}; "
+        f"split attention by route: {routes}")
+    check(launches["attention_split"] > 0 and launches["attention"] == 0
+          and routes["split_two_pass"] == launches["attention_split"],
+          f"input 2048 attention: {launches} {routes}")
+    check(tuple(depth.shape) == (1, 1080, 1920)
+          and depth.dtype == torch.uint8
+          and int(depth.max()) > int(depth.min()),
+          f"input 2048 depth {tuple(depth.shape)} {depth.dtype}")
+    t = time_ms(lambda: fn(frame), reps=2)
+    log(f"phase 3: input 2048: depth {t:.1f} ms/frame (1-frame batches), "
+        f"peak device memory {peak:.2f} GiB, on {card}")
 
 
 def pair_holes(frame, depth, params) -> None:
@@ -1243,6 +1351,9 @@ def main(argv=None) -> int:
         print("ERROR: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # the depth CLI's checkpoint resolution may reach for the hub; this
+    # machine has none to reach
+    os.environ["HF_HUB_OFFLINE"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -33,7 +33,8 @@ from vsc_tpu_torch.ops.upsample_cuda import (upsample_bilinear_int,
 from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
                                          forward_warp_eyes_plain,
                                          forward_warp_eyes_planar,
-                                         forward_warp_eyes_planar_plain)
+                                         forward_warp_eyes_planar_plain,
+                                         forward_warp_pair_planar)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,10 +67,27 @@ def test_blur_kernel_matches_plain(dev, shape, k, sigma, gamma):
         x, k, sigma, gamma), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("k", range(5, 32, 2))
+def test_blur_kernel_every_tap_count(dev, k):
+    # every instance of the kernel (one a tap count), on a plane of interior
+    # and border tiles in both directions (tiles of 32 x 224): the same
+    # products and sums in the same order, so the same bits; with the gamma
+    # (powf against torch's pow) within the kernel's bound
+    x = _rand((2, 101, 700), 40 + k, dev)
+    got = gaussian_blur_planes(x, k, k / 6.0)
+    assert torch.equal(got, gaussian_blur_planes_plain(x, k, k / 6.0))
+    torch.testing.assert_close(
+        gaussian_blur_planes(x, k, k / 6.0, 0.2),
+        gaussian_blur_planes_plain(x, k, k / 6.0, 0.2), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("shape,max_disp,flat", [
     ((2, 20, 90), 7.3, False),
     ((1, 13, 64), 5.0, False),
     ((2, 16, 80), 6.0, True),          # flat depth: every shift ties
+    ((2, 6, 6090), 50.0, True),        # two row segments, ties across them
+    ((1, 5, 11847), 50.0, True),       # the 4K pair's width: three segments
+    ((1, 7, 9000), 33.5, False),
 ])
 def test_warp_kernel_is_exact(dev, shape, max_disp, flat):
     img = torch.floor(_rand(shape + (3,), 1, dev) * 256)
@@ -332,6 +350,69 @@ def test_planar_warp_kernel_is_exact(dev, shape, max_disp):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("max_disp", [0.2, 0.45])
+def test_warp_kernel_minus_zero_ties_plus_zero(dev, max_disp):
+    # tests/test_torch_warp_scatter.py::test_scatter_minus_zero_ties_plus_
+    # zero on the card: keys +0.0 and -0.0 meet at one target in the right
+    # eye, and the larger source must win
+    depth = torch.zeros((1, 2, 16), device=dev)
+    depth[:, :, 6] = -2.0
+    depth[:, :, 7] = -0.0
+    img = torch.floor(_rand((1, 2, 16, 3), 15, dev) * 256)
+    got = forward_warp_eyes(img, depth, max_disp)
+    want = forward_warp_eyes_plain(img, depth, max_disp)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1][:3, 0, :, 7], img[0, :, 7].T.to(torch.uint8))
+
+
+@pytest.mark.parametrize("case", ["smooth", "flat", "steps", "specials"])
+@pytest.mark.parametrize("B,H,W,max_disp", [(1, 2160, 3840, 50.0),
+                                            (2, 9, 6090, 50.0),
+                                            (1, 4, 333, 12.0)])
+def test_warp_pair_kernel_is_exact(dev, case, B, H, W, max_disp):
+    """The in-place pair entry against the plain version's two eyes: flat
+    depth (every source ties with its neighbours), depth in steps of a few
+    codes (ties between classes and across shifts), and -0.0, NaN, inf and
+    depth outside [0, 1]."""
+    g = torch.Generator(dev).manual_seed(70)
+    img = torch.randint(0, 256, (B, 3, H, W), generator=g, device=dev,
+                        dtype=torch.uint8)
+    if case == "smooth":
+        xx = torch.linspace(0, 6.0, W, device=dev)
+        depth = (0.5 + 0.4 * torch.sin(xx))[None, None].expand(B, H, W) \
+            + 0.01 * torch.rand((B, H, W), generator=g, device=dev)
+    elif case == "flat":
+        depth = torch.full((B, H, W), 0.5, device=dev)
+    elif case == "steps":
+        depth = torch.floor(torch.rand((B, H, W), generator=g, device=dev)
+                            * 4) / 4
+    else:
+        depth = torch.rand((B, H, W), generator=g, device=dev) * 1.6 - 0.3
+        flat = depth.view(-1)
+        flat[::7] = -0.0
+        flat[3::11] = 0.0
+        flat[5::13] = float("nan")
+        flat[1::17] = float("inf")
+        flat[2::19] = -float("inf")
+    depth = depth.contiguous()
+    before = _cuda.LAUNCHES["warp"]
+    pair = forward_warp_pair_planar(img, depth, max_disp)
+    assert _cuda.LAUNCHES["warp"] == before + 1
+    assert tuple(pair.shape) == (4, 2 * B, H, W)
+    if H * W > 1_000_000:          # the plain version a row band at a time
+        for y in range(0, H, 270):
+            sl = slice(y, y + 270)
+            want = forward_warp_eyes_planar_plain(
+                img[:, :, sl].contiguous(), depth[:, sl].contiguous(),
+                max_disp)
+            assert torch.equal(pair[:, :B, sl], want[0])
+            assert torch.equal(pair[:, B:, sl], want[1])
+    else:
+        want = forward_warp_eyes_planar_plain(img, depth, max_disp)
+        assert torch.equal(pair, torch.cat(want, dim=1))
+
+
 @pytest.mark.parametrize("super_sampling", [1.0, 2.0, 3.0])
 def test_sbs_on_card_matches_cpu_plain(dev, super_sampling):
     g = torch.Generator().manual_seed(6)
@@ -455,8 +536,9 @@ def test_deconv_kernel_depthpro_sites(dev, dtype, site):
 @pytest.mark.parametrize("Dh", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("T", [1, 37, 64, 65, 577, 640])
 def test_split_attention_kernel_token_counts(dev, dtype, Dh, T):
-    from vsc_tpu_torch.ops.attention_cuda import SPLIT_HEAD_DIMS, SPLIT_MAX_T
-    assert Dh in SPLIT_HEAD_DIMS and T <= SPLIT_MAX_T
+    from vsc_tpu_torch.ops.attention_cuda import (SPLIT_HEAD_DIMS,
+                                                  SPLIT_RESIDENT_T)
+    assert Dh in SPLIT_HEAD_DIMS and T <= SPLIT_RESIDENT_T
     B, H = (2, 3) if T < 577 else (1, 2)
     g = torch.Generator(dev).manual_seed(50 + T + Dh)
     qkv = torch.randn((B, T, 3 * H * Dh), generator=g, device=dev).to(dtype)
@@ -520,13 +602,134 @@ def test_split_attention_kernel_dominant_key(dev, dtype, T):
             H, Dh)[None].expand(T, H, Dh), atol=1e-2, rtol=0)
 
 
-def test_split_attention_kernel_refuses_beyond_its_cap(dev):
-    from vsc_tpu_torch.ops.attention_cuda import (SPLIT_MAX_T,
-                                                  short_seq_attention)
-    qkv = torch.zeros((1, SPLIT_MAX_T + 1, 3 * 64), device=dev)
-    q, k, v = qkv.view(1, SPLIT_MAX_T + 1, 3, 1, 64).unbind(2)
-    with pytest.raises(ValueError, match="at most"):
-        short_seq_attention(q, k, v, 0.125)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_attention_kernel_runs_one_past_the_resident_cap(dev, dtype):
+    # the kernel's old cap + 1 runs, on the two-pass route
+    from vsc_tpu_torch.ops.attention_cuda import SPLIT_RESIDENT_T
+    T = SPLIT_RESIDENT_T + 1
+    g = torch.Generator(dev).manual_seed(60)
+    qkv = torch.randn((2, T, 3 * 2 * 64), generator=g, device=dev).to(dtype)
+    before = _cuda.ROUTE_LAUNCHES["split_two_pass"]
+    _split_check(qkv, 2, 64, 0.125)
+    assert _cuda.ROUTE_LAUNCHES["split_two_pass"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+@pytest.mark.parametrize("T", [1025, 1601, 4097])
+def test_split_attention_kernel_two_pass_token_counts(dev, dtype, Dh, T):
+    # the token counts of inputs 2048, 2560 and 4096 (tiles of 512, 640 and
+    # 1024): the two-pass route against the plain version
+    g = torch.Generator(dev).manual_seed(61 + T + Dh)
+    qkv = torch.randn((1, T, 3 * 2 * Dh), generator=g, device=dev).to(dtype)
+    before = _cuda.ROUTE_LAUNCHES["split_two_pass"]
+    _split_check(qkv, 2, Dh, Dh ** -0.5)
+    assert _cuda.ROUTE_LAUNCHES["split_two_pass"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+@pytest.mark.parametrize("T", [1, 37, 65, 577, 640])
+def test_split_attention_two_pass_route_equals_resident(dev, dtype, Dh, T,
+                                                        monkeypatch):
+    # where both routes run, they give the same bits: the second pass
+    # recomputes the first's logits exactly, and each thread sums its p in
+    # the resident route's order (the resident route's key range set to 0
+    # sends every T to the two-pass route)
+    from vsc_tpu_torch.ops import attention_cuda
+    g = torch.Generator(dev).manual_seed(62 + T + Dh)
+    qkv = torch.randn((2, T, 3 * 3 * Dh), generator=g, device=dev).to(dtype)
+    q, k, v = qkv.view(2, T, 3, 3, Dh).unbind(2)
+    before = dict(_cuda.ROUTE_LAUNCHES)
+    resident = attention_cuda.short_seq_attention(q, k, v, Dh ** -0.5)
+    monkeypatch.setattr(attention_cuda, "SPLIT_RESIDENT_T", 0)
+    two_pass = attention_cuda.short_seq_attention(q, k, v, Dh ** -0.5)
+    assert _cuda.ROUTE_LAUNCHES["split"] == before["split"] + 1
+    assert _cuda.ROUTE_LAUNCHES["split_two_pass"] == \
+        before["split_two_pass"] + 1
+    assert torch.equal(two_pass, resident)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_attention_two_pass_large_logits(dev, dtype):
+    # test_split_attention_kernel_large_logits at input 2048's 1025 tokens
+    g = torch.Generator(dev).manual_seed(63)
+    qkv = torch.randn((2, 1025, 3 * 2 * 64), generator=g, device=dev)
+    qkv[..., :2 * 2 * 64] *= 30 ** 0.5
+    _split_check(qkv.to(dtype), 2, 64, 0.125, large=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_attention_two_pass_dominant_key(dev, dtype):
+    # test_split_attention_kernel_dominant_key at 1025 tokens
+    N, T, H, Dh = 3, 1025, 2, 64
+    g = torch.Generator(dev).manual_seed(64)
+    qkv = 0.1 * torch.randn((N, T, 3 * H * Dh), generator=g, device=dev)
+    D = H * Dh
+    qkv[..., :D] = 1.0
+    keys = [T - 1, 0, T // 2]
+    for n, j in enumerate(keys):
+        qkv[n, j, D:2 * D] = 2.0
+    qkv = qkv.to(dtype)
+    got = _split_check(qkv, H, Dh, 0.125)
+    for n, j in enumerate(keys):
+        torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float().view(
+            H, Dh)[None].expand(T, H, Dh), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("N,T,H", [(3, 641, 2), (2, 1025, 16), (1, 1601, 3),
+                                   (1, 4097, 1)])
+def test_attention_kernel_beyond_its_tokens(dev, N, T, H):
+    # qkv_attention past its own kernel's 640 keys: the split kernel's
+    # two-pass route on views of the same qkv, the qkv kernel not launched
+    g = torch.Generator(dev).manual_seed(65 + T)
+    qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
+    got = qkv_attention(qkv, H, 0.125).float()
+    assert _cuda.LAUNCHES["attention"] == before[0]["attention"]
+    assert _cuda.LAUNCHES["attention_split"] == \
+        before[0]["attention_split"] + 1
+    assert _cuda.ROUTE_LAUNCHES["split_two_pass"] == \
+        before[1]["split_two_pass"] + 1
+    want = qkv_attention_plain(qkv, H, 0.125).float()
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 8e-3
+    assert float(diff.mean()) <= 1e-5
+
+
+def test_attention_kernel_beyond_its_tokens_large_logits(dev):
+    # test_attention_kernel_large_logits at 1025 tokens
+    g = torch.Generator(dev).manual_seed(66)
+    qkv = torch.randn((4, 1025, 3 * 2 * 64), generator=g, device=dev)
+    qkv[..., :2 * 2 * 64] *= 30 ** 0.5
+    qkv = qkv.to(torch.bfloat16)
+    got = qkv_attention(qkv, 2, 0.125).float()
+    want = qkv_attention_plain(qkv, 2, 0.125).float()
+    assert bool(torch.isfinite(got).all())
+    vmax = float(qkv[..., 2 * 2 * 64:].float().abs().max())
+    torch.testing.assert_close(got, want, rtol=8e-3, atol=2 ** -8 * vmax)
+    assert float((got - want).abs().mean()) <= 1e-3
+
+
+def test_attention_kernel_beyond_its_tokens_dominant_key(dev):
+    # test_attention_kernel_dominant_key at 1025 tokens
+    N, T, H = 3, 1025, 2
+    g = torch.Generator(dev).manual_seed(67)
+    qkv = 0.1 * torch.randn((N, T, 3 * H * 64), generator=g, device=dev)
+    D = H * 64
+    qkv[..., :D] = 1.0
+    keys = [T - 1, 0, T // 2]
+    for n, j in enumerate(keys):
+        qkv[n, j, D:2 * D] = 2.0
+    qkv = qkv.to(torch.bfloat16)
+    got = qkv_attention(qkv, H, 0.125).float()
+    want = qkv_attention_plain(qkv, H, 0.125).float()
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 8e-3 and float(diff.mean()) <= 1e-5
+    for n, j in enumerate(keys):
+        torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float()[
+            None].expand(T, D), atol=1e-2, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -279,6 +279,24 @@ def test_attention_route(dtype, dh, route):
         assert attention_route(dtype, dh) == route
 
 
+@pytest.mark.parametrize("dtype,dh,tokens,route", [
+    (torch.bfloat16, 64, 577, "qkv"), (torch.bfloat16, 64, 640, "qkv"),
+    (torch.bfloat16, 64, 641, "split_two_pass"),
+    (torch.bfloat16, 64, 1025, "split_two_pass"),
+    (torch.float32, 64, 640, "split"),
+    (torch.float32, 64, 1025, "split_two_pass"),
+    (torch.bfloat16, 16, 4097, "split_two_pass"),
+    (torch.float16, 64, 1025, None)])
+def test_attention_route_by_tokens(dtype, dh, tokens, route):
+    # past 640 tokens (input 2048 and up) every case goes to the split
+    # kernel's two-pass route; no token count is refused
+    if route is None:
+        with pytest.raises(ValueError, match="no kernel takes"):
+            attention_route(dtype, dh, tokens)
+    else:
+        assert attention_route(dtype, dh, tokens) == route
+
+
 def test_depthpro_head_dim_16_matches_jax():
     """JAX's tiny() encoder widths (embed 32, 2 heads: head dim 16), which
     its ViT sends to short_seq_attention; float32, weights carried across."""

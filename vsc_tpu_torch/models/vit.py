@@ -10,9 +10,10 @@ ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``.
 
 The fused qkv projection keeps PyTorch's [q | k | v] row order; the
 attention kernels (ops/attention_cuda.py) read q, k and v out of it through
-strides: the qkv kernel for bf16 at head dim 64, the split-q/k/v kernel for
-float32 (``VSC_TPU_DEPTH_DTYPE=float32``) and other head dims, as
-``attention_route`` decides (the JAX module's choice at
+strides: the qkv kernel for bf16 at head dim 64 up to 640 tokens (input
+1536), the split-q/k/v kernel for float32 (``VSC_TPU_DEPTH_DTYPE=float32``),
+other head dims and more tokens (input 2048 and up), as ``attention_route``
+decides (the JAX module's choice at
 ``vsc_tpu/models/vit.py:185-221``). Matmuls are ``nn.Linear`` (the JAX
 package leaves them to XLA). The folded-LayerNorm and sequence-sharding variants of the JAX module are
 not ported.
@@ -84,7 +85,7 @@ class Attention(nn.Module):
         qkv = self.qkv(x)
         B, T, D3 = qkv.shape
         H, Dh = self.num_heads, D3 // (3 * self.num_heads)
-        if attention_route(qkv.dtype, Dh) == "qkv":
+        if attention_route(qkv.dtype, Dh, T) == "qkv":
             out = qkv_attention(qkv.contiguous(), H, self.scale)
         else:
             q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)

@@ -14,6 +14,8 @@ Every C entry point returns a ``cudaError_t`` (0 = launched); ``check``
 turns anything else into a RuntimeError. ``LAUNCHES`` counts launches per
 kernel: each wrapper adds one right where it launches its kernel and
 nowhere else, so a run can show that its main path went through them.
+``ROUTE_LAUNCHES`` counts the split attention kernel's launches by route
+(``ops/attention_cuda.split_route``'s names).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr",
-           "require_cuda", "BUILD_SECONDS", "PTXAS_LOG"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "reset_launches", "library",
+           "check", "stream_ptr", "require_cuda", "BUILD_SECONDS",
+           "PTXAS_LOG"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vsc_tpu_torch"
@@ -38,6 +41,7 @@ NVCC_TIMEOUT = 600.0
 LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
             "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
             "bilateral": 0, "deconv": 0, "attention_split": 0}
+ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0}
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -51,12 +55,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, out, taps(host), N, H, W, ksize, gamma, has_gamma, stream
     "vsc_blur": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # depth, image (channel-last), eye_l, eye_r, rows, W, max_disparity,
-    # stream
-    "vsc_warp": [_P, _P, _P, _P, _I, _I, _F, _P],
-    # depth, image [B, 3, H, W] u8, eye_l, eye_r, B, H, W, max_disparity,
-    # stream
-    "vsc_warp_planar_u8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # depth, image (channel-last), eye_l, eye_r, rows, W, channel stride of
+    # the eyes' planes, max_disparity, stream
+    "vsc_warp": [_P, _P, _P, _P, _I, _I, _L, _F, _P],
+    # depth, image [B, 3, H, W] u8, eye_l, eye_r, B, H, W, channel stride of
+    # the eyes' planes, max_disparity, stream
+    "vsc_warp_planar_u8": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
     # eye4, smooth_q, out, tables(host), B, H, W, Hq, Wq, rb, stream
     "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qkv, out, N, T, heads, scale, stream
@@ -81,15 +85,16 @@ _SIGNATURES = {
     # batch stride of x in elements, bf16, stream
     "vsc_deconv2x2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _P],
     # q, k, v, out, B, T, heads, head dim, strides (batch, token, head) of
-    # q/k/v in elements, scale, bf16, stream
+    # q/k/v in elements, scale, bf16, two-pass route, stream
     "vsc_split_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
-                            _I, _P],
+                            _I, _I, _P],
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -61,7 +61,7 @@ from vsc_tpu_torch.ops.postprocess_cuda import _margin, postprocess_eye
 from vsc_tpu_torch.ops.resize import resize
 from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
 from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
-                                         forward_warp_eyes_planar)
+                                         forward_warp_pair_planar)
 
 __all__ = ["generate_sbs", "sbs_shapes", "StereoParams"]
 
@@ -215,10 +215,8 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
 
     if planar_u8:
         # 6-10 on the [4, 2B, H', W'] pair of both eyes
-        eye_l, eye_r = forward_warp_eyes_planar(
+        pair = forward_warp_pair_planar(
             rgb_st.contiguous(), depth_n.contiguous(), params.max_disparity)
-        pair = torch.cat([eye_l, eye_r], dim=1)
-        del eye_l, eye_r
         split = (os.environ.get("VSC_TPU_PP_SPLIT", "0") == "1"
                  and bilateral_pool_supported(up_h, up_w,
                                               params.artifact_smoothing))

@@ -8,7 +8,10 @@ Replaces ``vsc_tpu/ops/warp_pallas.py:_warp_planes`` (entries
 both eyes of the gather warp, emitted as the [4, B, H, W] uint8 (r, g, b,
 valid) stacks the postprocess consumes. Colors are floor(clip(., 0, 255))
 of the winning source pixel; the winner rule is ops/warp.py's, bit for bit.
-Kernel source: ``csrc/warp.cu`` (one scan, templated on the color loader).
+Kernel source: ``csrc/warp.cu`` (a scatter of each source to its two
+possible targets with a 64-bit max, templated on the color loader).
+``forward_warp_pair_planar`` writes both eyes straight into the [4, 2B, H,
+W] pair the planar-u8 branch goes on with (left eye first).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from vsc_tpu_torch.ops import _cuda
 
 __all__ = ["forward_warp_eyes", "forward_warp_eyes_plain",
-           "forward_warp_eyes_planar", "forward_warp_eyes_planar_plain"]
+           "forward_warp_eyes_planar", "forward_warp_eyes_planar_plain",
+           "forward_warp_pair_planar"]
 
 
 def _stack_eye(img, mask):
@@ -50,7 +54,7 @@ def forward_warp_eyes(image, depth, max_disparity: float):
     eye_r = torch.empty_like(eye_l)
     code = _cuda.library().vsc_warp(
         depth.data_ptr(), image.data_ptr(), eye_l.data_ptr(),
-        eye_r.data_ptr(), B * H, W, float(max_disparity),
+        eye_r.data_ptr(), B * H, W, B * H * W, float(max_disparity),
         _cuda.stream_ptr(image.device))
     _cuda.check(code, "vsc_warp")
     _cuda.LAUNCHES["warp"] += 1
@@ -65,26 +69,53 @@ def forward_warp_eyes_planar_plain(image_cf, depth, max_disparity: float):
         max_disparity)
 
 
+def _check_planar(name, image_cf, depth):
+    _cuda.require_cuda(name, image_cf, depth)
+    B, C, H, W = image_cf.shape
+    if (C != 3 or tuple(depth.shape) != (B, H, W)
+            or image_cf.dtype != torch.uint8 or depth.dtype != torch.float32):
+        raise ValueError(f"{name}: need image [B,3,H,W] uint8 and depth "
+                         f"[B,H,W] float32, got {tuple(image_cf.shape)} "
+                         f"{image_cf.dtype}, {tuple(depth.shape)} "
+                         f"{depth.dtype}")
+    return B, H, W
+
+
+def _launch_planar(image_cf, depth, max_disparity, eye_l_ptr, eye_r_ptr,
+                   cstride):
+    B, _, H, W = image_cf.shape
+    code = _cuda.library().vsc_warp_planar_u8(
+        depth.data_ptr(), image_cf.data_ptr(), eye_l_ptr, eye_r_ptr, B, H, W,
+        cstride, float(max_disparity), _cuda.stream_ptr(image_cf.device))
+    _cuda.check(code, "vsc_warp_planar_u8")
+    _cuda.LAUNCHES["warp"] += 1
+
+
 def forward_warp_eyes_planar(image_cf, depth, max_disparity: float):
     """The planar-u8 entry. CPU tensors: the plain version; CUDA tensors:
     the kernel."""
     if image_cf.device.type == "cpu" and depth.device.type == "cpu":
         return forward_warp_eyes_planar_plain(image_cf, depth, max_disparity)
-    _cuda.require_cuda("forward_warp_planar", image_cf, depth)
-    B, C, H, W = image_cf.shape
-    if (C != 3 or tuple(depth.shape) != (B, H, W)
-            or image_cf.dtype != torch.uint8 or depth.dtype != torch.float32):
-        raise ValueError(f"forward_warp_planar: need image [B,3,H,W] uint8 "
-                         f"and depth [B,H,W] float32, got "
-                         f"{tuple(image_cf.shape)} {image_cf.dtype}, "
-                         f"{tuple(depth.shape)} {depth.dtype}")
+    B, H, W = _check_planar("forward_warp_planar", image_cf, depth)
     eye_l = torch.empty((4, B, H, W), dtype=torch.uint8,
                         device=image_cf.device)
     eye_r = torch.empty_like(eye_l)
-    code = _cuda.library().vsc_warp_planar_u8(
-        depth.data_ptr(), image_cf.data_ptr(), eye_l.data_ptr(),
-        eye_r.data_ptr(), B, H, W, float(max_disparity),
-        _cuda.stream_ptr(image_cf.device))
-    _cuda.check(code, "vsc_warp_planar_u8")
-    _cuda.LAUNCHES["warp"] += 1
+    _launch_planar(image_cf, depth, max_disparity, eye_l.data_ptr(),
+                   eye_r.data_ptr(), B * H * W)
     return eye_l, eye_r
+
+
+def forward_warp_pair_planar(image_cf, depth, max_disparity: float):
+    """image_cf [B, 3, H, W] uint8, depth [B, H, W] float32 -> the pair
+    [4, 2B, H, W] uint8 of both eyes (``pair[:, :B]`` left, ``pair[:, B:]``
+    right). CPU tensors: the plain version's eyes, concatenated; CUDA
+    tensors: the kernel, writing each eye into its half in place."""
+    if image_cf.device.type == "cpu" and depth.device.type == "cpu":
+        return torch.cat(forward_warp_eyes_planar_plain(
+            image_cf, depth, max_disparity), dim=1)
+    B, H, W = _check_planar("forward_warp_pair_planar", image_cf, depth)
+    pair = torch.empty((4, 2 * B, H, W), dtype=torch.uint8,
+                       device=image_cf.device)
+    _launch_planar(image_cf, depth, max_disparity, pair.data_ptr(),
+                   pair[:, B:].data_ptr(), 2 * B * H * W)
+    return pair

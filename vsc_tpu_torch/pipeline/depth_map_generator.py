@@ -10,9 +10,13 @@ normalize and quantize to u8/u16 — all on the frames' device.
 Without a checkpoint DepthPro runs at its full production width with
 parameters drawn from a seeded generator on the target device, following
 the JAX package's flax init laws (its CLI does the same under
-``--model depthpro`` with no checkpoint). A checkpoint may be an npz of the
-JAX parameter tree (``vsc_tpu.models.convert.save_params``), carried
-across strictly by ``models/convert.py``.
+``--model depthpro`` with no checkpoint). A checkpoint may be Apple's
+``depth_pro.pt``, HuggingFace's ``apple/DepthPro-hf`` ``model.safetensors``
+(or a ``.pt`` / ``.pth`` of its state dict), converted strictly by
+``models/convert.py``, or an npz of the JAX parameter tree
+(``vsc_tpu.models.convert.save_params``, the weight cache of
+``models/bootstrap.py``), as the JAX package reads them
+(``vsc_tpu/pipeline/depth_map_generator.py:85-91``).
 
 Compute dtype: bfloat16 on CUDA, float32 on the CPU (the JAX rule: the
 accelerator's native inference precision, f32 elsewhere), unless
@@ -51,7 +55,9 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
                    checkpoint: str | None = None, seed: int = 0):
     """A DepthPro on ``device`` (None: ``default_device()``) in eval mode,
     in ``depth_dtype(device)``: production width at ``input_size`` unless
-    ``cfg`` is given; weights from ``checkpoint`` (a JAX npz) or drawn from
+    ``cfg`` is given; weights from ``checkpoint`` (``.pt``, ``.pth`` or
+    ``.safetensors`` converted, a hub download then cached as npz; any
+    other file read as a JAX npz) or drawn from
     ``torch.Generator(device).manual_seed(seed)``."""
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.models import (DepthPro, DepthProConfig, ViTConfig,
@@ -70,12 +76,15 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
     with device:
         model = DepthPro(cfg)
     if checkpoint:
-        if not str(checkpoint).endswith(".npz"):
-            raise NotImplementedError(
-                "the port loads JAX-tree npz checkpoints only "
-                "(vsc_tpu.models.convert.save_params)")
-        from vsc_tpu_torch.models.convert import load_jax_npz
-        load_jax_npz(checkpoint, model)
+        if str(checkpoint).endswith((".pt", ".pth", ".safetensors")):
+            from vsc_tpu_torch.models.bootstrap import maybe_cache_npz
+            from vsc_tpu_torch.models.convert import convert_torch_checkpoint
+            model.load_state_dict(convert_torch_checkpoint(checkpoint, model),
+                                  strict=True)
+            maybe_cache_npz(checkpoint, model)
+        else:
+            from vsc_tpu_torch.models.convert import load_jax_npz
+            load_jax_npz(checkpoint, model)
     else:
         init_flax_like(model, torch.Generator(device).manual_seed(seed))
     return model.to(depth_dtype(device)).eval()

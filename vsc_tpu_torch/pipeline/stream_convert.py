@@ -107,7 +107,10 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     if done_upto >= total > 0:
         print("All frames already encoded into chunks.")
     else:
-        checkpoint = os.environ.get(depth_map_generator.CHECKPOINT_ENV)
+        # the JAX package's order: env, then the npz cache, then the hub
+        from vsc_tpu_torch.models.bootstrap import resolve_checkpoint
+        checkpoint = (os.environ.get(depth_map_generator.CHECKPOINT_ENV)
+                      if model_name == "stub" else resolve_checkpoint())
         if model_name is None:
             model_name = "depthpro" if checkpoint else "stub"
         params = StereoParams.from_config(config["stereo"])
