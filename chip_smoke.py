@@ -107,6 +107,18 @@ def least_time(nbytes: float, **ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# Kernels that must round as their plain versions do write every f32
+# multiply and add as its own instruction (__fmul_rn / __fadd_rn, no FMA
+# contraction), and the card issues ~33.5 T of those a second (132 SMs x
+# 128 lanes x ~1.98 GHz): half the 67 TFLOP/s above, which counts an FMA as
+# two operations. Their floor is the operation count at that rate.
+LANE_OPS_S = 33.5e12
+
+
+def issue_floor(ops: float) -> dict:
+    return {"issue_floor_ms": 1e3 * ops / LANE_OPS_S}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -160,9 +172,10 @@ def check(ok: bool, what) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 20) -> float:
     """Mean device time of fn() over reps launches (CUDA events, after one
-    warm-up call)."""
+    warm-up call; 20 launches, so the host's time to reach the first one
+    adds little to a kernel of a tenth of a millisecond)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -531,7 +544,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                   library_ms=time_ms(lambda: F.interpolate(
                       depth[:, None], scale_factor=f, mode="bilinear",
                       align_corners=False)),
-                  **least_time(nbytes(depth, up_d), f32=6.0 * up_d.numel()))
+                  **least_time(nbytes(depth, up_d), f32=6.0 * up_d.numel()),
+                  **issue_floor(6.0 * up_d.numel()))
     check(e_u8 == 0 and e_f32 == 0, f"upsample disagrees: {e_u8} {e_f32}")
 
     # the blur of the up-res depth, then the planar-u8 warp on it
@@ -545,7 +559,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                     *blur_args), reps=2),
                 # two k-tap passes (multiply-add each) and the gamma
                 **least_time(nbytes(up_d, dn),
-                             f32=(4.0 * k + 4.0) * dn.numel()))
+                             f32=(4.0 * k + 4.0) * dn.numel()),
+                **issue_floor((4.0 * k + 4.0) * dn.numel()))
     check(err <= 1e-4, f"blur disagrees: {err}")
     # the warp writes both eyes into the pair in place (the main path's
     # entry), held against the plain version's eyes side by side
@@ -669,7 +684,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                 # each eye's crop read once; 5 + 5 taps, the unsharp and
                 # the box: ~26 operations per cropped pixel
                 **least_time(nbytes(got) + out[..., :crop_w].numel(),
-                             f32=26.0 * out[..., :crop_w].numel()))
+                             f32=26.0 * out[..., :crop_w].numel()),
+                **issue_floor(26.0 * out[..., :crop_w].numel()))
     check(err == 0, f"finish disagrees: {err}")
     log(f"phase 2: {H}x{W} super_sampling 3 shapes: upsample "
         f"{tuple(x_cf.shape)} and {tuple(depth.shape)} x{f}, pair "
@@ -683,6 +699,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
             + f" [{r['bound']}], kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']})"
+            + (f", no-FMA issue floor {r['issue_floor_ms']:.3f} ms"
+               if "issue_floor_ms" in r else "")
             + (f", library {r['library_ms']:.3f} ms" if "library_ms" in r
                else ""))
     return res

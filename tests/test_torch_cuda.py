@@ -280,8 +280,14 @@ def test_attention_kernel_dominant_key(dev, T):
             None].expand(T, D), atol=1e-2, rtol=0)
 
 
-@pytest.mark.parametrize("f,shape", [(2, (3, 13, 37)), (3, (2, 20, 301)),
-                                     (4, (1, 7, 150)), (3, (1, 1, 5))])
+@pytest.mark.parametrize("f,shape", [
+    (2, (3, 13, 37)), (3, (2, 20, 301)), (4, (1, 7, 150)), (3, (1, 1, 5)),
+    # every factor, at rows that end inside a warp's 128 columns and are not
+    # multiples of 4 or 16 in or out, on strips of rows with a ragged end
+    *[(f, (2, 9, 203)) for f in range(2, 9)],
+    *[(f, (1, 5, 131)) for f in range(2, 9)],
+    (3, (1, 4, 2030)), (3, (1, 3, 3949)),      # 1080p and 4K rows
+    (3, (2, 20, 128)), (5, (1, 2, 1))])
 @pytest.mark.parametrize("quantize_u8", [False, True])
 def test_upsample_kernel_is_exact(dev, f, shape, quantize_u8):
     x = _rand(shape, 7, dev)
@@ -290,6 +296,43 @@ def test_upsample_kernel_is_exact(dev, f, shape, quantize_u8):
     got = upsample_bilinear_int(x, f, quantize_u8)
     assert _cuda.LAUNCHES["upsample"] == before + 1
     assert torch.equal(got, upsample_bilinear_int_plain(x, f, quantize_u8))
+
+
+def _saturating(kind, shape, dev):
+    """All 0, all 255, or a 0/255 checkerboard over the last two axes."""
+    if kind == "zeros":
+        return torch.zeros(shape, device=dev)
+    if kind == "full":
+        return torch.full(shape, 255.0, device=dev)
+    h, w = shape[-2:]
+    board = (torch.arange(h, device=dev)[:, None]
+             + torch.arange(w, device=dev)[None]) % 2
+    return (255.0 * board).expand(shape).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["zeros", "full", "checker"])
+@pytest.mark.parametrize("f", [2, 3, 8])
+def test_upsample_kernel_saturating_inputs(dev, kind, f):
+    x = _saturating(kind, (2, 11, 203), dev)
+    for quantize_u8 in (False, True):
+        before = _cuda.LAUNCHES["upsample"]
+        got = upsample_bilinear_int(x, f, quantize_u8)
+        assert _cuda.LAUNCHES["upsample"] == before + 1
+        assert torch.equal(got, upsample_bilinear_int_plain(x, f,
+                                                            quantize_u8))
+
+
+@pytest.mark.parametrize("quantize_u8", [False, True])
+def test_upsample_kernel_default_shapes(dev, quantize_u8):
+    # the defaults' 1080p batch of 2: six RGB planes to u8, two depth planes
+    # to f32, each [1080, 2030] -> [3240, 6090]
+    shape = (6, 1080, 2030) if quantize_u8 else (2, 1080, 2030)
+    x = _rand(shape, 17, dev)
+    x = torch.floor(x * 256) if quantize_u8 else x
+    before = _cuda.LAUNCHES["upsample"]
+    got = upsample_bilinear_int(x, 3, quantize_u8)
+    assert _cuda.LAUNCHES["upsample"] == before + 1
+    assert torch.equal(got, upsample_bilinear_int_plain(x, 3, quantize_u8))
 
 
 def _eye4(b, h, w, seed, dev):
@@ -323,20 +366,66 @@ def test_pyramid_kernel_is_exact(dev, b, h, w):
     assert torch.equal(pyramid_fill_below(q), pyramid_fill_below_plain(q))
 
 
+def _finish_check(x, ratio, strength, oh, ow, crop_w, offsets):
+    before = _cuda.LAUNCHES["finish"]
+    got = sharpen_downscale_planar(x, ratio, strength, oh, ow, crop_w,
+                                   offsets)
+    assert _cuda.LAUNCHES["finish"] == before + 1
+    want = sharpen_downscale_plain(x, ratio, strength, oh, ow, crop_w,
+                                   offsets)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("ratio,h,w,offsets", [
     (3, 30, 420, (30, 6)), (2, 22, 300, (0, 0)), (4, 12, 540, (4, 17)),
-    (3, 9, 129, (0, 0))])
+    (3, 9, 129, (0, 0)),
+    # every ratio, odd and unequal offsets, rows of odd widths
+    *[(r, 4 * r + 3, 140 * r + 13, (7, 2)) for r in range(1, 9)],
+    (2, 70, 301, (3, 9)), (3, 69, 6090, (165, 1)),
+    # a tile whose rows all lie inside the plane (16 output rows a tile)
+    (1, 140, 140, (3, 1)), (2, 200, 301, (3, 9)), (3, 300, 421, (30, 7)),
+    (1, 5, 130, (1, 0))])                      # the smallest crop: 5 x 129
 def test_finish_kernel_is_exact(dev, ratio, h, w, offsets):
     crop_w = w - max(offsets)
     x = torch.floor(_rand((3, 4, h, w), 12, dev) * 256).to(torch.uint8)
     oh, ow = h // ratio, crop_w // ratio
-    got = sharpen_downscale_planar(x, ratio, 14.0, oh, ow, crop_w, offsets)
-    want = sharpen_downscale_plain(x, ratio, 14.0, oh, ow, crop_w, offsets)
-    assert torch.equal(got, want)
+    _finish_check(x, ratio, 14.0, oh, ow, crop_w, offsets)
     img = torch.movedim(x[..., :crop_w], 0, -1).float()
+    before = _cuda.LAUNCHES["finish"]
     got32 = sharpen_downscale(img, ratio, 14.0, oh, ow)
+    assert _cuda.LAUNCHES["finish"] == before + 1
     want32 = sharpen_downscale(img.cpu(), ratio, 14.0, oh, ow)
     assert torch.equal(got32.cpu(), want32)
+
+
+@pytest.mark.parametrize("ratio", [2, 3, 4])
+def test_finish_kernel_ragged_tiles(dev, ratio):
+    # a box grid that ends inside a tile in both axes (tiles of 16 rows and
+    # 64 columns of outputs) and leaves crop rows and columns unused
+    h, w, offsets = 35 * ratio + 2, 130 * ratio + 9, (5, 0)
+    x = torch.floor(_rand((3, 2, h, w), 13, dev) * 256).to(torch.uint8)
+    crop_w = w - 5
+    _finish_check(x, ratio, 14.0, 33, 129, crop_w, offsets)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "full", "checker"])
+@pytest.mark.parametrize("ratio", [1, 3, 5])
+def test_finish_kernel_saturating_inputs(dev, kind, ratio):
+    h, w, offsets = 11 * ratio + 1, 133 * ratio + 5, (5, 2)
+    x = _saturating(kind, (3, 4, h, w), dev).to(torch.uint8)
+    crop_w = w - 5
+    _finish_check(x, ratio, 14.0, h // ratio, crop_w // ratio, crop_w,
+                  offsets)
+
+
+def test_finish_kernel_default_shapes(dev):
+    # the defaults' 1080p pair: [3, 4, 3240, 6090], each eye at its offset
+    p = StereoParams()
+    from vsc_tpu_torch.ops.stereo import _crop_offsets
+    lo, ro, crop_w = _crop_offsets(1080, 1920, p)
+    x = torch.floor(_rand((3, 4, 3240, 6090), 14, dev) * 256).to(
+        torch.uint8)
+    _finish_check(x, 3, float(p.sharpen), 1080, 1920, crop_w, (lo, ro))
 
 
 @pytest.mark.parametrize("shape,max_disp", [((2, 20, 90), 7.3),

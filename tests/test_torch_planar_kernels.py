@@ -30,8 +30,12 @@ def _eye4(b, h, w, seed, holes=0.3):
     return np.concatenate([rgb * valid, valid[None]]).astype(np.uint8)
 
 
-@pytest.mark.parametrize("f,shape", [(2, (3, 13, 37)), (3, (2, 20, 45)),
-                                     (4, (1, 7, 150)), (3, (1, 1, 5))])
+@pytest.mark.parametrize("f,shape", [
+    (2, (3, 13, 37)), (3, (2, 20, 45)), (4, (1, 7, 150)), (3, (1, 1, 5)),
+    # factors up to 8, rows whose widths are not multiples of 4 or 16 in or
+    # out (the 1080p and 4K rows among them)
+    (5, (1, 9, 131)), (6, (2, 4, 33)), (7, (1, 5, 257)), (8, (1, 3, 129)),
+    (3, (1, 3, 2030)), (3, (1, 2, 3949))])
 @pytest.mark.parametrize("quantize_u8", [False, True])
 def test_upsample_plain_matches_pallas(f, shape, quantize_u8):
     from vsc_tpu.ops.upsample_pallas import upsample_bilinear_int_pallas
@@ -149,6 +153,27 @@ def test_finish_crops_each_eye_at_its_offset():
     want = np.asarray(j_fin(jnp.asarray(cropped), 3, 14.0, 8, 130))
     diff = np.abs(got.astype(int) - want.astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("offsets", [(7, 2), (1, 10)])
+@pytest.mark.parametrize("ratio,h,w", [(2, 22, 301), (3, 31, 421),
+                                       (4, 17, 555)])
+def test_finish_odd_unequal_offsets_match_pallas(ratio, h, w, offsets):
+    """Each eye at its own odd or even offset, rows of odd widths, a box
+    grid that leaves crop rows and columns over; JAX crops first."""
+    from vsc_tpu.ops.finish_pallas import sharpen_downscale_planar as j_fin
+    x = _pp_out(4, h, w, seed=ratio + offsets[0])
+    lo, ro = offsets
+    crop_w = w - max(lo, ro)
+    oh, ow = h // ratio, crop_w // ratio
+    got = sharpen_downscale_planar(_t(x), ratio, 14.0, oh, ow, crop_w,
+                                   (lo, ro)).numpy()
+    cropped = np.concatenate([x[:, :2, :, lo:lo + crop_w],
+                              x[:, 2:, :, ro:ro + crop_w]], axis=1)
+    want = np.asarray(j_fin(jnp.asarray(cropped), ratio, 14.0, oh, ow))
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (diff.max(),
+                                                          (diff > 0).mean())
 
 
 @pytest.mark.parametrize("h,w", [(27, 300), (12, 96)])

@@ -65,9 +65,8 @@ _SIGNATURES = {
     "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qkv, out, N, T, heads, scale, stream
     "vsc_qkv_attention": [_P, _P, _I, _I, _I, _F, _P],
-    # x, out, d0(host), k(host), wa(host), wb(host), N, H, W, f,
-    # quantize_u8, stream
-    "vsc_upsample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, out, wa(host), wb(host), N, H, W, f, quantize_u8, stream
+    "vsc_upsample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # eye4 u8, out f32, B, H, W, f, stream
     "vsc_pool_eye4": [_P, _P, _I, _I, _I, _I, _P],
     # planes f32, out f32, N, H, W, stream

@@ -23,6 +23,7 @@ exactly. Kernel source: ``csrc/finish.cu``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,9 +36,14 @@ __all__ = ["sharpen_downscale_planar", "sharpen_downscale",
 MAX_RATIO = 8
 
 
-def _taps():
+@functools.lru_cache(maxsize=None)
+def _taps() -> np.ndarray:
+    """The 5 taps of the unsharp gaussian (sigma 1), float32, contiguous;
+    symmetric, which the kernel relies on (it checks)."""
     from vsc_tpu_torch.ops.filters import gaussian_kernel1d
-    return gaussian_kernel1d(5, 1.0)
+    taps = np.ascontiguousarray(gaussian_kernel1d(5, 1.0), dtype=np.float32)
+    taps.setflags(write=False)
+    return taps
 
 
 def _crop(planes, crop_w: int, offsets):
@@ -97,6 +103,10 @@ def _launch(planes, ratio, strength, out_h, out_w, crop_w, offsets,
     if not 1 <= ratio <= MAX_RATIO:
         raise ValueError(f"sharpen_downscale: ratio {ratio} outside "
                          f"1..{MAX_RATIO}")
+    if 3 * N > 65535 or H * Wf >= 2**31 - 3:
+        raise ValueError(f"sharpen_downscale: {tuple(planes.shape)} is past "
+                         "the kernel's grid (3 N <= 65535) or its 32-bit "
+                         "plane offsets")
     if (out_h * ratio > H or out_w * ratio > crop_w
             or min(lo, ro) < 0 or max(lo, ro) + crop_w > Wf
             or (lo != ro and N % 2)):
@@ -105,7 +115,7 @@ def _launch(planes, ratio, strength, out_h, out_w, crop_w, offsets,
                          f"{out_h} x {out_w} boxes of {ratio}")
     out = torch.empty((3, N, out_h, out_w), dtype=out_dtype,
                       device=planes.device)
-    taps = np.ascontiguousarray(_taps(), dtype=np.float32)
+    taps = _taps()
     code = _cuda.library().vsc_finish(
         planes.data_ptr(), out.data_ptr(),
         taps.ctypes.data_as(ctypes.c_void_p), N, H, Wf, crop_w, lo, ro,

@@ -20,6 +20,7 @@ Kernel source: ``csrc/upsample.cu``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -33,23 +34,21 @@ __all__ = ["upsample_bilinear_int", "upsample_bilinear_int_plain",
 MAX_FACTOR = 8   # the JAX kernel's supported range is 1 < f <= 8
 
 
-def _phases(f: int):
-    """Per output phase p: (d0, k, wa, wb). d0 = floor((2p + 1 - f) / 2f)
-    is the first source tap's offset, k/2f the second tap's weight; wa, wb
-    are the float32 (1 - w1, w1) of resize's phase decomposition, computed
-    the way it computes them."""
-    d0, k, wa, wb = [], [], [], []
+@functools.lru_cache(maxsize=None)
+def _weights(f: int):
+    """Per output phase p the float32 (1 - w1, w1) of resize's phase
+    decomposition, computed the way it computes them (the kernel derives
+    the taps and the integer weights from f itself)."""
+    wa, wb = [], []
     for p in range(f):
-        num = 2 * p + 1 - f
-        d = num // (2 * f)
         sx = (p + 0.5) / f - 0.5
         w1 = sx - math.floor(sx)
-        d0.append(d)
-        k.append(num - d * 2 * f)
         wa.append(1.0 - w1)
         wb.append(w1)
-    return (np.asarray(d0, np.int32), np.asarray(k, np.int32),
-            np.asarray(wa, np.float32), np.asarray(wb, np.float32))
+    wa, wb = np.asarray(wa, np.float32), np.asarray(wb, np.float32)
+    wa.setflags(write=False)
+    wb.setflags(write=False)
+    return wa, wb
 
 
 def _int_taps(n: int, f: int, device):
@@ -92,14 +91,16 @@ def upsample_bilinear_int(x, factor: int, quantize_u8: bool = False):
         raise ValueError(f"upsample: need [N, H, W] float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     N, H, W = x.shape
+    if N > 65535:
+        raise ValueError(f"upsample: {N} planes, the kernel's grid takes "
+                         "65535")
     out = torch.empty((N, H * factor, W * factor),
                       dtype=torch.uint8 if quantize_u8 else torch.float32,
                       device=x.device)
-    d0, k, wa, wb = _phases(factor)
+    wa, wb = _weights(factor)
     code = _cuda.library().vsc_upsample(
-        x.data_ptr(), out.data_ptr(), d0.ctypes.data, k.ctypes.data,
-        wa.ctypes.data, wb.ctypes.data, N, H, W, factor, int(quantize_u8),
-        _cuda.stream_ptr(x.device))
+        x.data_ptr(), out.data_ptr(), wa.ctypes.data, wb.ctypes.data, N, H,
+        W, factor, int(quantize_u8), _cuda.stream_ptr(x.device))
     _cuda.check(code, "vsc_upsample")
     _cuda.LAUNCHES["upsample"] += 1
     return out
