@@ -13,8 +13,9 @@ Drives the port's streaming main path on the card and checks it:
      kernel: upsample, blur, planar-u8 warp, pools, pyramid, postprocess on
      the eye pair, finish, and the split route's bilateral; DepthPro's
      deconv sites and the split-q/k/v attention at its f32 and bf16
-     shapes), under its bound, with both times, the time of one PyTorch call
-     that computes the same function where there is one (SDPA,
+     shapes; the pyramid also on a 2-row quarter of the same ladder depth,
+     its latency floor), under its bound, with both times, the time of one
+     PyTorch call that computes the same function where there is one (SDPA,
      conv_transpose2d) and the least time the card could take (bytes at
      3.35 TB/s or operations at the peak for their type, whichever is
      larger; the postprocess's operations include the fill and polish its
@@ -196,9 +197,10 @@ GROUPS = [
     ("split attention kernel", r"split_attention_(bf16|f32)_kernel"),
     ("deconv kernel", r"deconv2x2_(bf16|f32)_kernel"),
     ("SBS kernels (blur, warp, postprocess, bilateral)",
-     r"::(blur|warp|postprocess_tile|bilateral|quarter)_kernel[<(]"),
+     r"::(blur|warp|postprocess_tile|bilateral_tile)_kernel[<(]"),
     ("super-sampling kernels (upsample, pool, pyramid, finish)",
-     r"::(upsample|pool_eye4|pool2|pyramid|sharpen_downscale)_kernel[<(]"),
+     r"::(upsample|pool_eye4|pool2|pyramid_(down|top|up)|sharpen_downscale)"
+     r"_kernel[<(]"),
     ("convolutions (cuDNN)", CONV_GROUP),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|cutlass"),
     ("copies and memsets", r"^Memcpy|^Memset|copy_kernel|CatArray"),
@@ -495,7 +497,7 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                                              gaussian_blur_planes_plain)
     from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale_planar,
                                                sharpen_downscale_plain)
-    from vsc_tpu_torch.ops.inpaint import PYR_KMAX, _avgpool2_hw, _edge_even
+    from vsc_tpu_torch.ops.inpaint import _edge_even
     from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
                                              avgpool2_plain,
                                              avgpool_eye4_plain)
@@ -607,15 +609,17 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
     else:
         q = avgpool_eye4_plain(pair, 4)
 
-    # pyramid below the handoff: glue levels down from the quarter
-    while max(q.shape[-2:]) > PYR_KMAX:
-        q = _avgpool2_hw(q)
+    # the pyramid: the whole ladder from the quarter, as the path hands it
+    # over; its latency floor is the same kernel on a 2-row quarter (the
+    # same 11 levels at 1080p, 0.25 % of the bytes)
     q = q.contiguous()
+    q_thin = q[..., :2, :].contiguous()
     filled = pyramid_fill_below(q)
     err = exact("pyramid", filled, pyramid_fill_below_plain(q),
                 bound="exact (bit-identical levels)",
                 ms=time_ms(lambda: pyramid_fill_below(q)),
                 plain_ms=time_ms(lambda: pyramid_fill_below_plain(q), reps=2),
+                latency_floor_ms=time_ms(lambda: pyramid_fill_below(q_thin)),
                 # pools and combines over the ladder: ~10 per input element
                 **least_time(nbytes(q, filled), f32=10.0 * q.numel()))
     check(err == 0, f"pyramid disagrees: {err}")
@@ -630,6 +634,7 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
         err, frac = float(d.max()), float((d > 0).float().mean())
         e_rest = max(float((filt[3].int() - pair[3].int()).abs().max()),
                      float((quarter - quarter_p).abs().max()))
+        bl_ops = bilateral_ops(sm, pair[0].numel()) + 16.0 * quarter.numel()
         del d, filt_p, quarter_p
         res["bilateral"] = dict(
             max_abs_err=max(err, e_rest), frac_differing=frac,
@@ -638,9 +643,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
             ms=time_ms(lambda: bilateral_pool_planar(pair, sm)),
             plain_ms=time_ms(lambda: bilateral_pool_plain(pair, sm), reps=2),
             # (~4 operations per masked value of the quarter sums)
-            **least_time(nbytes(pair, filt, quarter),
-                         f32=bilateral_ops(sm, pair[0].numel())
-                         + 16.0 * quarter.numel()))
+            **least_time(nbytes(pair, filt, quarter), f32=bl_ops),
+            **issue_floor(bl_ops))
         check(err <= 1 and frac < 1e-3 and e_rest == 0,
               f"bilateral disagrees: {err} {frac} {e_rest}")
         del filt, quarter
@@ -701,6 +705,9 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
             f"({r['bound_by']})"
             + (f", no-FMA issue floor {r['issue_floor_ms']:.3f} ms"
                if "issue_floor_ms" in r else "")
+            + (f", latency floor {r['latency_floor_ms']:.3f} ms (the same "
+               f"kernel on a {tuple(q_thin.shape)} quarter)"
+               if "latency_floor_ms" in r else "")
             + (f", library {r['library_ms']:.3f} ms" if "library_ms" in r
                else ""))
     return res

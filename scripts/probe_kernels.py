@@ -10,7 +10,12 @@ batch 2):
 - finish (``csrc/finish.cu``): the [3, 4, 3240, 6090] u8 pair, each eye
   cropped at the defaults' offsets, ratio 3, u8 out;
 - upsample (``csrc/upsample.cu``): [6, 1080, 2030] RGB to u8 and
-  [2, 1080, 2030] depth to f32, factor 3.
+  [2, 1080, 2030] depth to f32, factor 3;
+- pyramid (``csrc/pyramid.cu``): the whole ladder of the [4, 4, 810, 1523]
+  f32 quarter (a third of it in holes);
+- bilateral (``csrc/bilateral.cu``): the [4, 4, 3240, 6090] u8 pair at the
+  defaults' smoothing (radius 2): chip_smoke phase 2's warped pair, and
+  scene-like colors and uniform noise under 16 % scattered holes.
 
 Each kernel's variants are text substitutions of its source, each of which
 must match the source exactly once (a variant whose text is not found is
@@ -42,20 +47,38 @@ replaced, given with ``--source``), or a source of their own under
   stages; ``lanes store their own values``: no stage, each lane stores
   its outputs itself, one element at a time; ``strips of 4 rows``: a
   warp takes 4 source rows, not 2; ``launch bounds``: as for the
-  finish; ``blocks of 8 warps``: 8 warps a block, not 4.
+  finish; ``blocks of 8 warps``: 8 warps a block, not 4;
+- pyramid ``output 2 x 2 pixels a thread``: the up pass writes each
+  thread's own 2 x 2 pixels in place, not each output row of a region as
+  one coalesced run from a staged tile; ``top pass only``, ``wide passes
+  only``, ``down pass only``: the other launches left out; ``empty ladder
+  of 18 cluster barriers, clusters of 8`` / ``16``
+  (``probe_variants/cluster_ladder.cu``): one cluster per frame and
+  nothing but 18 ``cluster.sync()``s, the latency floor of a design whose
+  small levels run in a cluster, a barrier between levels;
+- bilateral ``exp per tap``: each tap's color weight from expf, not from
+  the block's table; ``num raised before the division``: num first
+  raised to den * 2^-30 (no result moves; a tiny numerator otherwise
+  sends the IEEE division down its slow path); ``no quarter``: the quarter's sums left
+  out; ``no division``, ``unit weights`` (no distance, table or space
+  weight), ``no taps`` (ablations).
 
-The ablations (no taps, no stores, own stores, one pass) compute wrong
-output and are only timed; every other variant is first checked bit for
-bit against the plain version. Times are CUDA events over 20 launches
-after a warm-up, each variant timed twice in the order a, b, ..., b, a.
+The ablations (no taps, no stores, own stores, one pass, passes left out,
+the cluster ladder, no quarter) compute wrong output and are only timed;
+every other variant is first checked bit for bit against the plain
+version (the bilateral's colors within 1 code on < 0.1 % of pixels, its
+valid plane and quarter exact). Times are CUDA events over 20 launches
+after a warm-up, each variant timed twice in the order a, b, ..., b, a;
+then, for the kernel as it is, the device time of each of its launches
+(torch.profiler over 5 calls).
 Run from the repository root on a machine with a card and nvcc:
 
-    python3 scripts/probe_kernels.py [--kernel blur|finish|upsample|all]
-                                     [--source PATH ...]
+    python3 scripts/probe_kernels.py [--kernel NAME|all] [--source PATH ...]
 
 ``--source`` adds another copy of a kernel with the same C entry and
 arguments (for example the parent commit's, unpacked elsewhere), labelled
-by its path; it is taken for the kernel its file is named after.
+by its path and built against the headers beside it; it is taken for the
+kernel its file is named after.
 """
 
 from __future__ import annotations
@@ -73,10 +96,14 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+from chip_smoke import profile_device  # noqa: E402
 from vsc_tpu_torch.ops import stereo  # noqa: E402
+from vsc_tpu_torch.ops.bilateral_cuda import bilateral_pool_plain  # noqa: E402
 from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes_plain  # noqa: E402
 from vsc_tpu_torch.ops.filters import gaussian_kernel1d  # noqa: E402
 from vsc_tpu_torch.ops.finish_cuda import _taps, sharpen_downscale_plain  # noqa: E402
+from vsc_tpu_torch.ops.postprocess_cuda import bilateral_tables  # noqa: E402
+from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below_plain  # noqa: E402
 from vsc_tpu_torch.ops.upsample_cuda import (  # noqa: E402
     _weights, upsample_bilinear_int_plain)
 
@@ -93,8 +120,10 @@ class Kernel:
     args: list        # its ctypes argument types
     cases: Callable   # dev -> [(label, run(entry) -> output, plain output)]
     subs: dict        # variant -> [(text, replacement), ...]
-    files: dict = field(default_factory=dict)   # variant -> its own source
+    # variant -> its own source, or (source, [(text, replacement), ...])
+    files: dict = field(default_factory=dict)
     unchecked: tuple = ()   # ablations: timed, not checked
+    agrees: Callable = torch.equal   # (output, plain output) -> bool
 
 
 def blur_cases(dev) -> list:
@@ -164,6 +193,142 @@ def upsample_cases(dev) -> list:
                     f"{f}", run, upsample_bilinear_int_plain(x, f, u8)))
     return res
 
+
+def pyramid_cases(dev) -> list:
+    N, h, w = 4, 810, 1523
+    g = torch.Generator(dev).manual_seed(0)
+    valid = torch.rand((N, h, w), generator=g, device=dev)
+    valid = torch.where(valid < 0.2, torch.zeros_like(valid), valid)
+    valid[:, : h // 2, : w // 3] = 0.0
+    img = torch.rand((3, N, h, w), generator=g, device=dev) * 255 * valid
+    q = torch.cat([img, valid[None]]).contiguous()
+    out = torch.empty((3, N, h, w), device=dev)
+    # room for every variant's workspace (and for a design that keeps a
+    # frame's ladder at ws + n * ws_floats)
+    ws = torch.empty((N * 4 * h * w,), device=dev)
+
+    def run(fn):
+        code = fn(q.data_ptr(), out.data_ptr(), ws.data_ptr(), N, h, w,
+                  4 * h * w, torch.cuda.current_stream().cuda_stream)
+        assert code == 0, code
+        return out
+    return [(f"[4, {N}, {h}, {w}] f32", run, pyramid_fill_below_plain(q))]
+
+
+def ss3_pair(dev, B: int = 2, H: int = 1080, W: int = 1920):
+    """chip_smoke phase 2's eye pair at the defaults: its frames stretched
+    and upsampled, warped by the blur of its up-res depth."""
+    from chip_smoke import frames_u8, smooth_depth
+    from vsc_tpu_torch.ops.blur_cuda import gaussian_blur_planes
+    from vsc_tpu_torch.ops.resize import resize
+    from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
+    from vsc_tpu_torch.ops.warp_cuda import forward_warp_pair_planar
+    p = stereo.StereoParams()
+    s = stereo.sbs_shapes(H, W, p)
+    SW, f = s["stretched_w"], 3
+    rgb = frames_u8(B, dev, 5, H, W).float()
+    rgb_st = stereo._quantize_like(resize(rgb, H, SW, "lanczos4",
+                                          channel_last=True), 255.0)
+    x_cf = torch.movedim(rgb_st, -1, 1).reshape(-1, H, SW).contiguous()
+    up = upsample_bilinear_int(x_cf, f, quantize_u8=True)
+    up_d = upsample_bilinear_int(smooth_depth(B, H, SW, dev, 1), f)
+    k = max(5, min(int(p.edge_softness * 6) | 1, 31))
+    dn = gaussian_blur_planes(up_d, k, p.edge_softness, p.depth_gamma)
+    return forward_warp_pair_planar(up.reshape(B, 3, s["up_h"], s["up_w"]),
+                                    dn, p.max_disparity)
+
+
+def bilateral_cases(dev) -> list:
+    B, H, W = 4, 3240, 6090
+    sm = stereo.StereoParams().artifact_smoothing
+    rb, space_w, inv2sc = bilateral_tables(sm)
+    g = torch.Generator(dev).manual_seed(0)
+    yy = torch.arange(H, device=dev)[:, None].float()
+    xx = torch.arange(W, device=dev)[None, :].float()
+    scene = (128 + 100 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0)
+             + 8 * torch.randn((3, B, H, W), generator=g, device=dev))
+    noise = 256 * torch.rand((3, B, H, W), generator=g, device=dev)
+    valid = (torch.rand((B, H, W), generator=g, device=dev) > 0.16).float()
+    res = []
+    pairs = [("chip_smoke's warped pair", ss3_pair(dev))] + [
+        (label, torch.cat([torch.floor(rgb.clamp(0, 255)) * valid,
+                           valid[None]]).to(torch.uint8))
+        for label, rgb in (("scene-like colors", scene),
+                           ("uniform noise", noise))]
+    del scene, noise
+    for label, eye4 in pairs:
+        out = torch.empty_like(eye4)
+        quarter = torch.empty((4, B, H // 4, (W // 2 + 1) // 2), device=dev)
+
+        def run(fn, eye4=eye4, out=out, quarter=quarter):
+            code = fn(eye4.data_ptr(), out.data_ptr(), quarter.data_ptr(),
+                      space_w.ctypes.data_as(ctypes.c_void_p), inv2sc, B, H,
+                      W, rb, torch.cuda.current_stream().cuda_stream)
+            assert code == 0, code
+            return out, quarter
+        res.append((f"[4, {B}, {H}, {W}] u8, {label}, radius {rb}", run,
+                    bilateral_pool_plain(eye4, sm)))
+    return res
+
+
+def bilateral_agrees(got, want) -> bool:
+    d = (got[0][:3].int() - want[0][:3].int()).abs()
+    return (int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+            and torch.equal(got[0][3], want[0][3])
+            and torch.equal(got[1], want[1]))
+
+
+PYRAMID_UP_TAIL = """\
+  const int h = d.h[0], w = d.w[0];
+  const int i = threadIdx.x / kSide1, j = threadIdx.x % kSide1;
+  const int gy = by * kSide1 + i, gx = bx * kSide1 + j;
+  if (gy >= d.h[1] || gx >= d.w[1]) return;
+  const size_t plane = (size_t)d.N * h * w;
+  float* o = out + (size_t)n * h * w;
+  for (int a = 0; a < 2; ++a) {
+    const int y = 2 * gy + a;
+    if (y >= h) break;
+    for (int b = 0; b < 2; ++b) {
+      const int x = 2 * gx + b;
+      if (x >= w) break;
+      const float m = v[3][2 * a + b];
+      for (int c = 0; c < 3; ++c)
+        o[c * plane + (size_t)y * w + x] = fill(v[c][2 * a + b], m,
+                                                s.lv[c][i][j]);
+    }
+  }
+}"""
+PYRAMID_UP_STAGED = """\
+  // level 0 through a staged tile: a thread fills its 2 x 2 pixels, then
+  // a warp writes each output row of the region as one coalesced run
+  const int h = d.h[0], w = d.w[0];
+  {
+    const int i = threadIdx.x / kSide1, j = threadIdx.x % kSide1;
+    for (int a = 0; a < 2; ++a)
+      for (int b = 0; b < 2; ++b)
+        for (int c = 0; c < 3; ++c)
+          o0[c][2 * i + a][2 * j + b] =
+              fill(v[c][2 * a + b], v[3][2 * a + b], s.lv[c][i][j]);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % kRegion, x = bx * kRegion + lane;
+  if (x >= w) return;
+  const size_t plane = (size_t)d.N * h * w;
+  float* o = out + (size_t)n * h * w + x;
+  for (int r = threadIdx.x / kRegion; r < kRegion;
+       r += kWideThreads / kRegion) {
+    const int y = by * kRegion + r;
+    if (y >= h) break;
+    for (int c = 0; c < 3; ++c) o[c * plane + (size_t)y * w] = o0[c][r][lane];
+  }
+}"""
+PYRAMID_DOWN = "pyramid_down_kernel<<<grid, kWideThreads, 0, s>>>(q, ws, d);"
+PYRAMID_TOP = "pyramid_top_kernel<<<N, kTopThreads, 0, s>>>(ws, d);"
+PYRAMID_UP = "pyramid_up_kernel<<<grid, kWideThreads, 0, s>>>(q, ws, out, d);"
+BILATERAL_WEIGHT = "weight[(int)acc.distance(sh)]"
+BILATERAL_FINISH = "acc.finish(o);"
+BILATERAL_TAP = (
+    "acc.add(__fmul_rn(t.w[i++], weight[(int)acc.distance(sh)]), sh);")
 
 FINISH_U8_STORE = (
     "        if constexpr (kU8)\n"
@@ -262,11 +427,53 @@ KERNELS = {
             "blocks of 8 warps": [("constexpr int kWarps = 4;",
                                    "constexpr int kWarps = 8;")]},
         unchecked=("no global stores", "lanes store their own values")),
+    "pyramid": Kernel(
+        entry="vsc_pyramid", args=[P, P, P, I, I, I, ctypes.c_longlong, P],
+        cases=pyramid_cases,
+        subs={
+            "output 2 x 2 pixels a thread": [
+                (PYRAMID_UP_STAGED, PYRAMID_UP_TAIL)],
+            "top pass only": [(PYRAMID_DOWN, ";"), (PYRAMID_UP, ";")],
+            "wide passes only": [(PYRAMID_TOP, ";")],
+            "down pass only": [(PYRAMID_TOP, ";"), (PYRAMID_UP, ";")]},
+        files={
+            "empty ladder of 18 cluster barriers, clusters of 8":
+                VARIANTS / "cluster_ladder.cu",
+            "empty ladder of 18 cluster barriers, clusters of 16":
+                (VARIANTS / "cluster_ladder.cu",
+                 [("constexpr int kCluster = 8;",
+                   "constexpr int kCluster = 16;")])},
+        unchecked=("top pass only", "wide passes only", "down pass only",
+                   "empty ladder of 18 cluster barriers, clusters of 8",
+                   "empty ladder of 18 cluster barriers, clusters of 16")),
+    "bilateral": Kernel(
+        entry="vsc_bilateral_pool", args=[P, P, P, P, F, I, I, I, I, P],
+        cases=bilateral_cases,
+        subs={
+            "exp per tap": [(
+                BILATERAL_WEIGHT,
+                "vsc::color_weight(t.inv2sc, acc.distance(sh))")],
+            "num raised before the division": [(BILATERAL_FINISH, (
+                "for (int k = 0; k < 3; ++k) o[k] = floorf(fminf(fmaxf("
+                "rintf(__fdiv_rn(fmaxf(acc.num[k], __fmul_rn(acc.den, "
+                "0x1p-30f)), acc.den)), 0.0f), 255.0f));"))],
+            "no quarter": [("  if (quarter != nullptr) {",
+                            "  if (false) {")],
+            "no division (ablation)": [(
+                BILATERAL_FINISH,
+                "for (int k = 0; k < 3; ++k) o[k] = acc.num[k];")],
+            "unit weights (ablation)": [(BILATERAL_TAP,
+                                         "acc.add(t.w[i++], sh);")],
+            "no taps (ablation)": [(BILATERAL_TAP, "i++;")]},
+        unchecked=("no quarter", "no division (ablation)",
+                   "unit weights (ablation)", "no taps (ablation)"),
+        agrees=bilateral_agrees),
 }
 
 
 def variants(name: str, path: Path) -> dict:
-    """label -> source: the kernel at path and its variants."""
+    """label -> (source, its include directory): the kernel at path and its
+    variants."""
     kern = KERNELS[name]
     src = path.read_text()
     prefix = "" if path.parent == CSRC else f"{path}: "
@@ -281,20 +488,25 @@ def variants(name: str, path: Path) -> dict:
             v = v.replace(text, repl)
         out[prefix + var] = v
     if not prefix:
-        out.update({var: f.read_text() for var, f in kern.files.items()})
-    return out
+        for var, f in kern.files.items():
+            f, subs = f if isinstance(f, tuple) else (f, [])
+            v = f.read_text()
+            for text, repl in subs:
+                v = v.replace(text, repl)
+            out[var] = v
+    return {label: (v, path.parent) for label, v in out.items()}
 
 
 def build(name: str, srcs: dict) -> dict:
     """label -> the C entry of its copy, nvcc'd in parallel."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (label, src) in enumerate(srcs.items()):
+    for i, (label, (src, inc)) in enumerate(srcs.items()):
         cu = OUT / f"{name}_{i}.cu"
         cu.write_text(src)
         procs[label] = subprocess.Popen(
             [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-I", str(CSRC), "-Xcompiler", "-fPIC", "-shared", "-o",
+             "-O3", "-I", str(inc), "-Xcompiler", "-fPIC", "-shared", "-o",
              str(cu.with_suffix(".so")), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     entries = {}
@@ -334,7 +546,7 @@ def probe(name: str, sources: list, dev) -> None:
             got = run(entries[v])
             torch.cuda.synchronize()
             if (v.rsplit(": ", 1)[-1] not in unchecked
-                    and not torch.equal(got, want)):
+                    and not KERNELS[name].agrees(got, want)):
                 raise SystemExit(f"{name} {v} differs from the plain version "
                                  f"({label})")
             times[v].append(time_ms(lambda fn=entries[v]: run(fn)))
@@ -343,6 +555,13 @@ def probe(name: str, sources: list, dev) -> None:
         for v, t in times.items():
             print(f"{name} {v}: {' / '.join(f'{x:.4f}' for x in t)} ms",
                   flush=True)
+        # the kernel's own launches by name, device time (torch.profiler)
+        reps = 5
+        prof = profile_device(lambda: [run(entries["kernel"])
+                                       for _ in range(reps)])
+        print(f"{name} kernel, device time a call by launch: " + "; ".join(
+            f"{n[:60]} {t / reps:.4f} ms"
+            for n, t in prof["per_kernel"].items()), flush=True)
 
 
 def main(argv=None) -> int:

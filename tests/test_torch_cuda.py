@@ -355,15 +355,53 @@ def test_avgpool2_kernel_is_exact(dev, shape):
     assert torch.equal(avgpool2(x), avgpool2_plain(x))
 
 
-@pytest.mark.parametrize("b,h,w", [(2, 13, 27), (1, 1, 9), (2, 7, 1),
-                                   (1, 1, 1), (4, 203, 381)])
-def test_pyramid_kernel_is_exact(dev, b, h, w):
-    valid = _rand((b, h, w), 10, dev)
+def _pyramid_check(q):
+    """One counted launch, bit-identical to the plain ladder (the torch
+    ladder with no handoff, _push_pull_hw(kmax=1))."""
+    before = _cuda.LAUNCHES["pyramid"]
+    got = pyramid_fill_below(q)
+    assert _cuda.LAUNCHES["pyramid"] == before + 1
+    assert torch.equal(got, pyramid_fill_below_plain(q))
+
+
+def _pyramid_quarter(b, h, w, seed, dev, holes="mixed"):
+    valid = _rand((b, h, w), seed, dev)
     valid = torch.where(valid < 0.4, torch.zeros_like(valid), valid)
     valid[:, : h // 2, : w // 3] = 0.0
-    img = _rand((3, b, h, w), 11, dev) * 255 * valid
-    q = torch.cat([img, valid[None]]).contiguous()
-    assert torch.equal(pyramid_fill_below(q), pyramid_fill_below_plain(q))
+    if holes == "all":
+        valid.zero_()
+    elif holes == "none":
+        valid = 0.5 + 0.5 * _rand((b, h, w), seed + 2, dev)
+    img = _rand((3, b, h, w), seed + 1, dev) * 255 * valid
+    return torch.cat([img, valid[None]]).contiguous()
+
+
+# small shapes; the quarter of the default path (1080p, super_sampling 3,
+# batch 2) and of a 2160 x 3840 frame; odd at each of the first three
+# levels (41 -> 21 -> 11, 169 -> 85 -> 43; 105 -> 53 -> 27, 329 -> 165 ->
+# 83); a region's edge; the level two pools below the default quarter
+@pytest.mark.parametrize("b,h,w", [(2, 13, 27), (1, 1, 9), (2, 7, 1),
+                                   (1, 1, 1), (4, 203, 381),
+                                   (4, 810, 1523), (2, 1620, 2962),
+                                   (2, 41, 169), (1, 105, 329),
+                                   (3, 64, 33), (1, 33, 64)])
+def test_pyramid_kernel_is_exact(dev, b, h, w):
+    _pyramid_check(_pyramid_quarter(b, h, w, 10, dev))
+
+
+@pytest.mark.parametrize("holes", ["all", "none"])
+@pytest.mark.parametrize("b,h,w", [(2, 13, 27), (1, 1, 1), (4, 810, 1523),
+                                   (2, 41, 169)])
+def test_pyramid_kernel_hole_free_and_all_hole(dev, b, h, w, holes):
+    _pyramid_check(_pyramid_quarter(b, h, w, 12, dev, holes))
+
+
+def test_pyramid_kernel_frames_differ(dev):
+    """Each frame's ladder is its own: an all-hole frame beside a hole-free
+    one and a mixed one."""
+    q = torch.cat([_pyramid_quarter(1, 203, 381, 14, dev, holes)
+                   for holes in ("all", "none", "mixed")], dim=1)
+    _pyramid_check(q.contiguous())
 
 
 def _finish_check(x, ratio, strength, oh, ow, crop_w, offsets):
@@ -515,14 +553,11 @@ def test_sbs_on_card_matches_cpu_plain(dev, super_sampling):
     assert float(diff.mean()) < 0.05 and int(diff.max()) <= 16
 
 
-@pytest.mark.parametrize("b,h,w,smoothing,pool", [
-    (2, 40, 260, 1.0, True), (1, 48, 250, 1.0, True),   # W/2 odd
-    (2, 36, 134, 2.5, True), (1, 12, 6, 3.9, False),    # radius 7, tiny
-])
-def test_bilateral_kernel_matches_plain(dev, b, h, w, smoothing, pool):
+def _bilateral_check(eye4, smoothing, pool=True):
+    """One counted launch; the filtered colors within 1 code of the plain
+    version on < 0.1 % of pixels; the valid plane and the quarter exact."""
     from vsc_tpu_torch.ops.bilateral_cuda import (bilateral_pool_planar,
                                                   bilateral_pool_plain)
-    eye4 = _eye4(b, h, w, 15, dev)
     before = _cuda.LAUNCHES["bilateral"]
     filt, q = bilateral_pool_planar(eye4, smoothing, pool)
     assert _cuda.LAUNCHES["bilateral"] == before + 1
@@ -536,13 +571,74 @@ def test_bilateral_kernel_matches_plain(dev, b, h, w, smoothing, pool):
         assert torch.equal(q, q_p)
 
 
+@pytest.mark.parametrize("b,h,w,smoothing,pool", [
+    (2, 40, 260, 1.0, True), (1, 48, 250, 1.0, True),   # W/2 odd
+    (2, 36, 134, 2.5, True), (1, 12, 6, 3.9, False),    # radius 7, tiny
+])
+def test_bilateral_kernel_matches_plain(dev, b, h, w, smoothing, pool):
+    _bilateral_check(_eye4(b, h, w, 15, dev), smoothing, pool)
+
+
+def _smooth_eye4(b, h, w, seed, dev, holes=0.3):
+    """Scene-like colors (so the color weights span their range), holes."""
+    yy = torch.arange(h, device=dev)[:, None].float()
+    xx = torch.arange(w, device=dev)[None, :].float()
+    base = 128 + 100 * torch.sin(xx / 9.0) * torch.cos(yy / 13.0)
+    rgb = base + 12 * torch.randn((3, b, h, w), device=dev,
+                                  generator=torch.Generator(dev).manual_seed(
+                                      seed))
+    valid = (_rand((b, h, w), seed + 1, dev) > holes).float()
+    rgb = torch.floor(rgb.clamp(0, 255)) * valid
+    return torch.cat([rgb, valid[None]]).to(torch.uint8)
+
+
+# every radius the wrapper reaches (smoothing > 0: diameter >= 5, so 2-7)
+@pytest.mark.parametrize("radius,smoothing", [(2, 1.25), (3, 1.5), (4, 2.0),
+                                              (5, 2.5), (6, 3.0), (7, 3.5)])
+def test_bilateral_kernel_every_radius(dev, radius, smoothing):
+    from vsc_tpu_torch.ops.postprocess_cuda import bilateral_geometry
+    assert bilateral_geometry(smoothing)[0] == radius
+    _bilateral_check(_smooth_eye4(2, 44, 198, radius, dev), smoothing)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 8])
+def test_bilateral_kernel_refuses_other_radii(dev, radius):
+    """Radii 0 and 1 are not reached (smoothing > 0 gives radius >= 2)
+    and 8 is past the kernel's instances: the C entry refuses each."""
+    import ctypes
+    eye4 = _eye4(1, 8, 8, 3, dev)
+    out = torch.empty_like(eye4)
+    w = np.ones(256, dtype=np.float32)
+    code = _cuda.library().vsc_bilateral_pool(
+        eye4.data_ptr(), out.data_ptr(), None,
+        w.ctypes.data_as(ctypes.c_void_p), -0.001, 1, 8, 8, radius,
+        _cuda.stream_ptr(dev))
+    assert code != 0
+
+
+# B = 1-4; H not a multiple of the tile's 32 rows; W/2 odd (250, 6090);
+# the phase-2 pair's geometry ([4, 4, 3240, 6090]) at a reduced height
+@pytest.mark.parametrize("b,h,w", [(1, 36, 250), (2, 100, 130), (3, 68, 64),
+                                   (4, 4, 70), (4, 40, 6090), (2, 68, 6090)])
+def test_bilateral_kernel_geometries(dev, b, h, w):
+    _bilateral_check(_smooth_eye4(b, h, w, b + h, dev), 1.0)
+
+
+@pytest.mark.parametrize("layout", ["border holes", "hole heavy"])
 @pytest.mark.parametrize("smoothing", [1.0, 2.5])
-def test_split_postprocess_equals_fused_on_card(dev, smoothing):
+def test_split_postprocess_equals_fused_on_card(dev, smoothing, layout):
     from vsc_tpu_torch.ops.bilateral_cuda import bilateral_pool_planar
     from vsc_tpu_torch.ops.inpaint import _pyramid_fill_planar_coarse
-    eye4 = _eye4(2, 40, 260, 16, dev)
-    eye4[3, :, :, :3] = 0        # holes along the left and right borders
-    eye4[3, :, :, -3:] = 0
+    if layout == "border holes":
+        eye4 = _eye4(2, 40, 260, 16, dev)
+        eye4[3, :, :, :3] = 0    # holes along the left and right borders
+        eye4[3, :, :, -3:] = 0
+    else:
+        # 60 % holes plus wide disocclusions: most tiles take the
+        # postprocess's hole path
+        eye4 = _smooth_eye4(2, 72, 262, 17, dev, holes=0.6)
+        eye4[3, :, 10:50, 30:90] = 0
+        eye4[3, 1, :, 150:200] = 0
     eye4[:3] *= eye4[3][None]
     smooth_q = _pyramid_fill_planar_coarse(eye4)
     filt, quarter = bilateral_pool_planar(eye4, smoothing)

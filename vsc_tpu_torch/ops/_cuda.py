@@ -71,8 +71,10 @@ _SIGNATURES = {
     "vsc_pool_eye4": [_P, _P, _I, _I, _I, _I, _P],
     # planes f32, out f32, N, H, W, stream
     "vsc_pool2": [_P, _P, _I, _I, _I, _P],
-    # quarter, out, workspace, N, h, w, workspace floats per frame, stream
+    # quarter, out, workspace, N, h, w, workspace floats, stream
     "vsc_pyramid": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # N, h, w, out: the workspace floats vsc_pyramid needs
+    "vsc_pyramid_workspace": [_I, _I, _I, ctypes.POINTER(_L)],
     # planes u8, out, taps(host), N, H, Wf, crop_w, off0, off1, nsplit,
     # ratio, strength, out_h, out_w, out_u8, stream
     "vsc_finish": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,

@@ -8,9 +8,8 @@ the JAX package's planar-u8 SBS branch reaches under ``VSC_TPU_PP_SPLIT=1``
 a kernel of its own (the postprocess then runs at smoothing 0), and the
 quarter-resolution (rgb * valid, valid) pool stack that seeds the inpaint
 pyramid, from the same input. Kernel source: ``csrc/bilateral.cu``, whose
-per-pixel bilateral is the postprocess prep's own device function
-(``csrc/bilateral.cuh``), so the split route's SBS equals the default
-route's bit for bit.
+per-pixel arithmetic is the postprocess's own (``csrc/bilateral.cuh``), so
+the split route's SBS equals the default route's bit for bit.
 
 The JAX kernel's strip height (``VSC_TPU_BF_ROWS``) and tap pairing
 (``VSC_TPU_PP_PAIRED``) are TPU tiling and accumulation-order choices; the

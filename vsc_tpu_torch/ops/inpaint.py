@@ -12,9 +12,9 @@ and polish itself (ops/postprocess_cuda.py).
 
 ``_pyramid_fill_planar_coarse`` is the planar-u8 form the super-sampled
 stereo branch uses: the pool kernels (ops/pool_cuda.py) for the first two
-levels, torch glue down to ``PYR_KMAX``, the pyramid kernel
-(ops/pyramid_cuda.py) below it. ``_push_pull_hw`` is the plain ladder over
-the last two axes that both kernels' plain versions run.
+levels, the pyramid kernel (ops/pyramid_cuda.py) for the whole ladder from
+there. ``_push_pull_hw`` is the plain ladder over the last two axes that
+both kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -24,11 +24,6 @@ import math
 import torch
 
 __all__ = ["pyramid_inpaint", "disc_offsets"]
-
-# largest side of the level handed to the pyramid kernel; the levels above
-# it stay torch glue (the JAX package's VSC_TPU_PYR_KMAX default)
-PYR_KMAX = 384
-
 
 def disc_offsets(radius: int):
     """(dy, dx, 1/hypot) over the disc dy^2 + dx^2 <= radius^2 + 1, minus
@@ -133,7 +128,9 @@ def _push_pull_hw(img, msk, kmax: int = 1, below=None):
     """Masked push-pull of [3, B, h, w] ``img`` (already times the mask)
     under [B, h, w] ``msk``: pool while the larger side exceeds ``kmax``,
     fill the last level (img / msk at 1 x 1, or ``below`` of the stacked
-    [4, B, h', w'] level), then combine back up level by level."""
+    [4, B, h', w'] level), then combine back up level by level. The port's
+    paths pass neither ``kmax`` nor ``below``; they stay for the test that
+    holds a handoff anywhere to the same bits as none."""
     levels = []
     while max(msk.shape[-2], msk.shape[-1]) > kmax:
         levels.append((img, msk))
@@ -157,8 +154,9 @@ def _pyramid_fill_planar_coarse(eye4, quarter4=None):
 
     The structure the JAX package takes on the TPU: even H and W pool in
     the kernels (one 4x4 launch when both divide by 4, else 2x2 from u8 and
-    2x2 on f32), odd ones in torch; torch glue pools on while a side
-    exceeds ``PYR_KMAX``; the pyramid kernel fills from there down.
+    2x2 on f32), odd ones in torch. The pyramid kernel takes the whole
+    ladder from the quarter: the JAX package's torch levels above its
+    ``VSC_TPU_PYR_KMAX`` handoff give the same bits (``_push_pull_hw``).
 
     ``quarter4``: the [4, B, H/4, ~W/4] float32 pooled (rgb * valid, valid)
     stack already computed (the split route's bilateral kernel emits it,
@@ -167,8 +165,7 @@ def _pyramid_fill_planar_coarse(eye4, quarter4=None):
                                              avgpool4_eye4)
     from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
     if quarter4 is not None:
-        return _push_pull_hw(quarter4[:3], quarter4[3], PYR_KMAX,
-                             pyramid_fill_below)
+        return pyramid_fill_below(quarter4)
     H, W = eye4.shape[-2], eye4.shape[-1]
     if H % 4 == 0 and W % 4 == 0:
         x = avgpool4_eye4(eye4)
@@ -180,7 +177,7 @@ def _pyramid_fill_planar_coarse(eye4, quarter4=None):
         msk = eye4[3].to(torch.float32)
         x = torch.cat([eye4[:3].to(torch.float32) * msk, msk[None]])
         x = _avgpool2_hw(_avgpool2_hw(x))
-    return _push_pull_hw(x[:3], x[3], PYR_KMAX, pyramid_fill_below)
+    return pyramid_fill_below(x)
 
 
 def _frontier_sweep(val, known):

@@ -1,16 +1,23 @@
 """
-Masked push-pull pyramid below the handoff level — CUDA kernel wrapper
-======================================================================
+Masked push-pull pyramid — CUDA kernel wrapper
+==============================================
 
-Replaces ``vsc_tpu/ops/pyramid_pallas.py:pyramid_fill_below``: quarter
-[4, N, h, w] float32 (r, g, b pooled img * valid, then the pooled valid)
--> [3, N, h, w] float32 push-pull estimate, the whole level ladder down to
-1 x 1 and back in one launch. Its plain version is the torch ladder
-(``ops/inpaint.py`` ``_push_pull_hw``), level for level bit-identical.
-Kernel source: ``csrc/pyramid.cu``.
+Replaces ``vsc_tpu/ops/pyramid_pallas.py:pyramid_fill_below`` and the
+torch glue levels the JAX package runs above its handoff
+(``VSC_TPU_PYR_KMAX``): quarter [4, N, h, w] float32 (r, g, b pooled
+img * valid, then the pooled valid) -> [3, N, h, w] float32 push-pull
+estimate, the whole level ladder down to 1 x 1 and back. Its plain version
+is the torch ladder (``ops/inpaint.py`` ``_push_pull_hw``), level for
+level bit-identical wherever a handoff lies. Kernel source:
+``csrc/pyramid.cu`` (three launches: a down pass and an up pass over
+32 x 32 regions on every SM, the small levels between them in one block
+per frame), counted as one. The wrapper keeps the name of the Pallas
+entry it replaces, though nothing is left above it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,15 +29,6 @@ __all__ = ["pyramid_fill_below", "pyramid_fill_below_plain"]
 
 def pyramid_fill_below_plain(quarter):
     return _push_pull_hw(quarter[:3], quarter[3])
-
-
-def _workspace_floats(h: int, w: int) -> int:
-    """Floats of the four planes of every level below the input."""
-    n = 0
-    while h > 1 or w > 1:
-        h, w = (h + 1) // 2, (w + 1) // 2
-        n += 4 * h * w
-    return n
 
 
 def pyramid_fill_below(quarter):
@@ -46,12 +44,14 @@ def pyramid_fill_below(quarter):
         raise ValueError(f"pyramid_fill_below: need float32, got "
                          f"{quarter.dtype}")
     dev = quarter.device
+    lib = _cuda.library()
+    n_ws = ctypes.c_longlong()
+    _cuda.check(lib.vsc_pyramid_workspace(N, h, w, ctypes.byref(n_ws)),
+                "vsc_pyramid_workspace")
     out = torch.empty((3, N, h, w), dtype=torch.float32, device=dev)
-    per_frame = max(_workspace_floats(h, w), 1)
-    ws = torch.empty((N, per_frame), dtype=torch.float32, device=dev)
-    code = _cuda.library().vsc_pyramid(
-        quarter.data_ptr(), out.data_ptr(), ws.data_ptr(), N, h, w, per_frame,
-        _cuda.stream_ptr(dev))
+    ws = torch.empty((n_ws.value,), dtype=torch.float32, device=dev)
+    code = lib.vsc_pyramid(quarter.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                           N, h, w, n_ws.value, _cuda.stream_ptr(dev))
     _cuda.check(code, "vsc_pyramid")
     _cuda.LAUNCHES["pyramid"] += 1
     return out
