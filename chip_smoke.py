@@ -41,7 +41,20 @@ Drives the port's streaming main path on the card and checks it:
      last one 1-frame batch of DepthPro at input 2048 (every attention on
      the two-pass route), counters reset around it;
   4. the CLI: ``stream_convert.run`` on a short synthetic clip, when the
-     media engine and tqdm are present.
+     media engine and tqdm are present;
+  5. the step workflow at 1080p through the step CLIs' ``main(argv)``, as a
+     user runs it: ``workflow_init`` on a placeholder input, 12 frames
+     written as PNGs (``frame_extractor`` only where the media engine
+     starts), ``depth_map_generator`` (full-width DepthPro from seed 0,
+     bf16, batch 8: one full and one padded batch; its PNGs equal
+     ``build_depth_fn`` on the same batches bit for bit; a second run
+     launches nothing), ``sbs_generator`` at the defaults (batch 4; its PNGs
+     equal ``generate_sbs`` on the frames and the depth read back, bit for
+     bit; every default-path SBS kernel launched), a 16-bit pass (uint16
+     TIFF depth; a crop checked against the CPU plain path), and
+     ``sbs_tester --grid``; each step's frames/s after a warm-up run on
+     other frames, the device's busy share over each step (torch.profiler),
+     and the SBS step with and without its per-dispatch health probe.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -49,11 +62,14 @@ when there is no CUDA device or the port's sources are missing.
 
     python3 chip_smoke.py                   # all phases, as the check runs it
     python3 chip_smoke.py --phases 1,2      # build + kernel checks only
+    python3 chip_smoke.py --phases 1,5      # build + the step workflow
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -209,12 +225,13 @@ GROUPS = [
 ]
 
 
-def profile_device(fn):
+def profile_device(fn, window: str = "chip_smoke_window"):
     """Device time of one call of fn() from torch.profiler's device events
     only (kernels, copies, memsets; the aten:: rows that launch them are
     host events and are left out). Busy = the union of their intervals
-    inside the host window around fn() and its synchronize; idle = the
-    rest of that window."""
+    inside the host window around fn() and its synchronize (or inside the
+    first host event named ``window`` that fn() records); idle = the rest
+    of that window."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -225,14 +242,14 @@ def profile_device(fn):
             fn()
             torch.cuda.synchronize()
     events = prof.events()
-    win = next(e for e in events if e.name == "chip_smoke_window"
+    win = next(e for e in events if e.name == window
                and e.device_type == DeviceType.CPU)
     w0, w1 = win.time_range.start, win.time_range.end
-    # the window also shows up as a device-side annotation: not a kernel
+    # the windows also show up as device-side annotations: not kernels
     dev = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1),
                   e.name) for e in events
                  if e.device_type == DeviceType.CUDA
-                 and e.name != "chip_smoke_window")
+                 and e.name not in ("chip_smoke_window", window))
     busy, end = 0.0, w0
     for a, b, _ in dev:
         if b > end:
@@ -939,15 +956,18 @@ def drive(frames, depth_fn, params):
     return outs, batch_s, dict(_cuda.LAUNCHES)
 
 
-def small_sbs_check(params, dev):
-    """The SBS composition on the card vs the CPU plain path, 2 x 72 x 128,
-    disparity and convergence scaled from 1920 to 128 columns."""
+def small_sbs_check(params, dev, rgb=None, dsm=None, phase=3, what=""):
+    """The SBS composition on the card vs the CPU plain path, by default on
+    2 x 72 x 128 synthetic frames (else on the CPU tensors ``rgb`` [B, 72,
+    128, 3] and ``dsm`` [B, 72, 128], u8 or u16), disparity and convergence
+    scaled from 1920 to 128 columns."""
     import torch
     from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
-    g = torch.Generator().manual_seed(3)
-    rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
-    dsm = (smooth_depth(2, 72, 128, torch.device("cpu"), 4) * 255).to(
-        torch.uint8)
+    if rgb is None:
+        g = torch.Generator().manual_seed(3)
+        rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
+        dsm = (smooth_depth(2, 72, 128, torch.device("cpu"), 4) * 255).to(
+            torch.uint8)
     small = StereoParams(max_disparity=params.max_disparity * 128 / 1920,
                          convergence=params.convergence * 128 / 1920,
                          super_sampling=params.super_sampling)
@@ -956,7 +976,7 @@ def small_sbs_check(params, dev):
     diff = (got - ref).abs().float()
     mean, over1, top = (float(diff.mean()), float((diff > 1).float().mean()),
                         int(diff.max()))
-    log(f"phase 3: small SBS card vs CPU plain at super_sampling "
+    log(f"phase {phase}: small SBS{what} card vs CPU plain at super_sampling "
         f"{params.super_sampling:g}: mean diff {mean:.4f}, >1 code "
         f"{over1:.5f}, max {top}")
     check(mean < 0.05 and over1 < 0.005 and top <= 16,
@@ -1311,20 +1331,25 @@ def pair_holes(frame, depth, params) -> None:
         f"holes; postprocess {time_ms(lambda: real(*seen[0])):.3f} ms")
 
 
+def media_engine_starts() -> bool:
+    """The port's vscmedia engine builds and starts (a binary whose libav
+    libraries are absent cannot even start)."""
+    from vsc_tpu_torch.native import vscmedia_path
+    engine = vscmedia_path()
+    try:
+        return engine is not None and subprocess.run(
+            [str(engine)], capture_output=True, timeout=60).returncode != 127
+    except OSError:
+        return False
+
+
 def phase_cli():
     missing = []
     try:
         import tqdm  # noqa: F401
     except ImportError:
         missing.append("tqdm")
-    from vsc_tpu_torch.native import vscmedia_path
-    engine = vscmedia_path()
-    try:   # a binary whose libav libraries are absent cannot even start
-        usable = engine is not None and subprocess.run(
-            [str(engine)], capture_output=True, timeout=60).returncode != 127
-    except OSError:
-        usable = False
-    if not usable:
+    if not media_engine_starts():
         missing.append("the vscmedia media engine (libav)")
     if missing:
         log(f"phase 4: not run: missing {' and '.join(missing)}")
@@ -1357,9 +1382,329 @@ def phase_cli():
             f"{time.perf_counter() - t0:.1f} s")
 
 
+STEP_FRAMES = 12        # phase 5: a full depth batch of 8 and a padded one
+STEP_DEPTH_BATCH = 8
+STEP_SBS_BATCH = 4
+# the kernels of the SBS step at the defaults (super_sampling 3)
+SBS_STEP_KERNELS = ("blur", "warp", "postprocess", "upsample", "pool",
+                    "pyramid", "finish")
+
+
+def new_workflow(path: Path, video: Path) -> Path:
+    from vsc_tpu_torch.pipeline import workflow_init
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = workflow_init.main(["--input-video", str(video),
+                                 "--workflow-dir", str(path)])
+    check(rc == 0, f"workflow_init.main on {path} returned {rc}")
+    return path
+
+
+def write_frames(wf: Path, frames) -> None:
+    from vsc_tpu_torch.io.image import write_rgb
+    for i, f in enumerate(frames, 1):
+        check(write_rgb(wf / "frames" / f"frame_{i:06d}.png", f),
+              f"write frame {i}")
+
+
+def step_main(module, argv, what: str) -> tuple[float, str]:
+    """One step CLI's main(argv): its wall time (host clock) and output;
+    a nonzero exit code fails the run."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{what} exited {rc}: {out.getvalue()[-2000:]}")
+    return wall, out.getvalue()
+
+
+class pipeline_clock:
+    """Wall time of each run_pipeline call (the loader, compute and saver
+    threads of a step, without the model's build or the first read), which
+    also runs inside a profiler event named "step_pipeline", and the host
+    seconds spent in each of its four callables (``parts``)."""
+
+    PARTS = ("load_batch", "compute", "save_one", "split_results")
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from vsc_tpu_torch.io import prefetch
+        self.real, self.seconds = prefetch.run_pipeline, []
+        self.parts = {name: 0.0 for name in self.PARTS}
+
+        def clocked(name, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.parts[name] += time.perf_counter() - t0
+            return call
+
+        def timed(items, *fns, **k):
+            fns = [clocked(n, f) for n, f in zip(self.PARTS, fns)]
+            t0 = time.perf_counter()
+            try:
+                with record_function("step_pipeline"):
+                    return self.real(items, *fns, **k)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+        prefetch.run_pipeline = timed
+        return self
+
+    def breakdown(self) -> str:
+        """Host seconds by callable: the loader thread's reads, the main
+        thread's launches (compute) and waits for a batch's copy back
+        (split_results), the saver thread's writes."""
+        return ", ".join(f"{n} {t:.3f} s" for n, t in self.parts.items())
+
+    def __exit__(self, *exc):
+        from vsc_tpu_torch.io import prefetch
+        prefetch.run_pipeline = self.real
+
+
+def step_busy_share(module, argv, what: str) -> str:
+    """The device's busy share over one step's pipeline (run_pipeline's
+    window), from torch.profiler's device events, and its device time by
+    kernel group and top kernels."""
+    def run():
+        with pipeline_clock():
+            step_main(module, argv, what)
+    prof = profile_device(run, window="step_pipeline")
+    top = sorted(prof["per_kernel"].items(), key=lambda kv: -kv[1])[:6]
+    return (f"device busy {prof['busy_ms']:.1f} of {prof['window_ms']:.1f} "
+            f"ms of the pipeline "
+            f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
+            f"{prof['events']} device events; by group: " + "; ".join(
+                f"{g} {t:.1f} ms" for g, t in sorted(
+                    prof["groups"].items(), key=lambda kv: -kv[1]) if t > 0)
+            + "; top: " + "; ".join(f"{t:.1f} ms {n[:60]}" for n, t in top))
+
+
+def phase_steps(card: str) -> dict:
+    """Phase 5: the step workflow through its mains at 1080p. Returns the
+    launches of the counted depth and SBS steps by kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from vsc_tpu_torch.config import load_config, save_config
+    from vsc_tpu_torch.io.image import read_depth, read_rgb
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.pipeline import (depth_map_generator, sbs_generator,
+                                        sbs_tester)
+    dev = torch.device("cuda")
+    n = STEP_FRAMES
+    depth_argv = ["--model", "depthpro", "--batch-size",
+                  str(STEP_DEPTH_BATCH), "--no-interactive"]
+    sbs_argv = ["--batch-size", str(STEP_SBS_BATCH), "--no-interactive"]
+    frames = frames_u8(n, dev, 50).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        video = tmp / "input.mkv"    # workflow_init checks only is_file()
+        video.touch()
+        wf = new_workflow(tmp / "workflow", video)
+        warm = new_workflow(tmp / "warm", video)
+        write_frames(wf, frames)
+        write_frames(warm, frames_u8(n, dev, 60).cpu().numpy())
+        log("phase 5: workflow_init.main made two workflows; "
+            f"{n} 1080p frames written to each")
+        phase_steps_extract(tmp)
+
+        # warm-up on other frames: cuDNN and cuBLAS choices, first launches
+        step_main(depth_map_generator, [str(warm), *depth_argv], "warm depth")
+        step_main(sbs_generator, [str(warm), *sbs_argv], "warm SBS")
+
+        # the depth step, counted and timed
+        _cuda.reset_launches()
+        with pipeline_clock() as clock:
+            t_depth, out = step_main(depth_map_generator,
+                                     [str(wf), *depth_argv], "depth step")
+        l_depth = dict(_cuda.LAUNCHES)
+        depth_files = sorted((wf / "depth_maps").glob("depth_frame_*.png"))
+        check(len(depth_files) == n, f"{len(depth_files)} depth maps")
+        check(l_depth["attention"] > 0, f"depth step launches {l_depth}")
+        batches = -(-n // STEP_DEPTH_BATCH)
+        log(f"phase 5: depth step ({n} frames, batch {STEP_DEPTH_BATCH}): "
+            f"launches {l_depth} ({batches} batches); wall {t_depth:.2f} s = "
+            f"{n / t_depth:.2f} frames/s around main, pipeline "
+            f"{clock.seconds[0]:.2f} s = {n / clock.seconds[0]:.2f} frames/s "
+            f"({clock.breakdown()}) on {card}")
+
+        # its PNGs against build_depth_fn on the CLI's own padded batches
+        read = np.stack([read_rgb(f) for f in
+                         sorted((wf / "frames").glob("frame_*.png"))])
+        check(np.array_equal(read, frames), "frames read back differ")
+        fn = depth_map_generator.build_depth_fn(
+            "depthpro", 1536, 1080, 1920, False, device=dev, seed=0)
+        want = []
+        for i in range(0, n, STEP_DEPTH_BATCH):
+            b = read[i:i + STEP_DEPTH_BATCH]
+            b = np.concatenate([b] + [b[-1:]] * (STEP_DEPTH_BATCH - len(b)))
+            want.append(fn(torch.from_numpy(b).to(dev))[:n - i].cpu().numpy())
+        want = np.concatenate(want)
+        del fn
+        got = np.stack([read_depth(f) for f in depth_files])
+        check(got.dtype == np.uint8 and np.array_equal(got, want),
+              f"depth PNGs differ from build_depth_fn: "
+              f"{int((got != want).sum())} pixels")
+        log("phase 5: depth PNGs equal build_depth_fn on the same padded "
+            f"batches bit for bit ({n} frames)")
+        shutil.rmtree(wf / "depth_maps")
+        log("phase 5: depth step under torch.profiler: " + step_busy_share(
+            depth_map_generator, [str(wf), *depth_argv], "profiled depth")
+            + f" on {card}")
+        check(np.array_equal(np.stack([read_depth(f) for f in depth_files]),
+                             want), "the profiled depth run differs")
+
+        # resume: nothing left to do, nothing launched
+        _cuda.reset_launches()
+        _, out = step_main(depth_map_generator, [str(wf), *depth_argv],
+                           "depth resume")
+        relaunch = sum(_cuda.LAUNCHES.values())
+        check("0 to process" in out and relaunch == 0,
+              f"depth resume: {relaunch} launches, {out[-500:]}")
+        log("phase 5: a second depth run: 0 to process, 0 launches")
+
+        # the SBS step at the defaults, counted and timed
+        config = load_config(wf)
+        check(config["stereo"] == StereoParams().to_dict(), config["stereo"])
+        _cuda.reset_launches()
+        with pipeline_clock() as clock:
+            t_sbs, _ = step_main(sbs_generator, [str(wf), *sbs_argv],
+                                 "SBS step")
+        l_sbs = dict(_cuda.LAUNCHES)
+        check(all(l_sbs[k] > 0 for k in SBS_STEP_KERNELS),
+              f"SBS step launches {l_sbs}")
+        sbs_files = sorted((wf / "sbs").glob("sbs_*.png"))
+        check(len(sbs_files) == n, f"{len(sbs_files)} SBS frames")
+        check(not list((wf / "frames").glob("*.png")),
+              "free_space 'frame' left frames")
+        batches = -(-n // STEP_SBS_BATCH)
+        log(f"phase 5: SBS step ({n} frames, batch {STEP_SBS_BATCH}, "
+            f"StereoParams() defaults, free_space 'frame'): launches {l_sbs} "
+            f"({batches} batches); wall {t_sbs:.2f} s = {n / t_sbs:.2f} "
+            f"frames/s around main, pipeline {clock.seconds[0]:.2f} s = "
+            f"{n / clock.seconds[0]:.2f} frames/s ({clock.breakdown()}) on "
+            f"{card}")
+        for i in range(0, n, STEP_SBS_BATCH):
+            sl = slice(i, i + STEP_SBS_BATCH)
+            ref = generate_sbs(torch.from_numpy(read[sl]).to(dev),
+                               torch.from_numpy(got[sl]).to(dev),
+                               StereoParams()).cpu().numpy()
+            for f, w in zip(sbs_files[sl], ref):
+                check(np.array_equal(read_rgb(f), w),
+                      f"{f.name} differs from generate_sbs")
+        log("phase 5: SBS PNGs equal generate_sbs on the frames and the "
+            f"depth read back, bit for bit ({n} frames)")
+
+        phase_steps_timing(wf, frames, sbs_argv, card)
+
+        # the 16-bit pass: uint16 TIFF depth on 4 frames
+        wf16 = new_workflow(tmp / "workflow16", video)
+        config = load_config(wf16)
+        config["depth"]["save_16bit"] = True
+        save_config(wf16, config)
+        write_frames(wf16, frames[:4])
+        step_main(depth_map_generator, [str(wf16), *depth_argv],
+                  "16-bit depth step")
+        tifs = sorted((wf16 / "depth_maps").glob("depth_frame_*.tif"))
+        d16 = np.stack([read_depth(f) for f in tifs])
+        check(len(tifs) == 4 and d16.dtype == np.uint16
+              and all(int(d.min()) == 0 and int(d.max()) == 65535
+                      for d in d16),
+              f"16-bit depth: {len(tifs)} files, {d16.dtype}")
+        step_main(sbs_generator, [str(wf16), *sbs_argv], "16-bit SBS step")
+        s16 = sorted((wf16 / "sbs").glob("sbs_*.png"))
+        ref = generate_sbs(torch.from_numpy(frames[:4]).to(dev),
+                           torch.from_numpy(d16).to(dev),
+                           StereoParams()).cpu().numpy()
+        check(len(s16) == 4 and all(np.array_equal(read_rgb(f), w)
+                                    for f, w in zip(s16, ref)),
+              "16-bit SBS PNGs differ from generate_sbs")
+        log("phase 5: 16-bit pass: 4 uint16 TIFFs (0..65535 each), SBS PNGs "
+            "equal generate_sbs on them bit for bit")
+        crop = (slice(None, 1), slice(400, 472), slice(800, 928))
+        small_sbs_check(StereoParams(), dev,
+                        torch.from_numpy(frames[crop].copy()),
+                        torch.from_numpy(d16[crop].copy()), phase=5,
+                        what=" on a 72 x 128 crop of the 16-bit pass")
+
+        # the tester's grid on the frames and 8-bit depth
+        write_frames(wf, frames)
+        grid_dir = tmp / "grid"
+        step_main(sbs_tester, [str(wf), "--grid",
+                               "max_disparity=20,40;super_sampling=1,3",
+                               "--frames", "2", "--out-dir", str(grid_dir)],
+                  "sbs_tester --grid")
+        report = json.loads((grid_dir / "grid_report.json").read_text())
+        check(len(report) == 4 and all(e["frames_per_s"] > 0
+                                       for e in report), report)
+        log("phase 5: sbs_tester --grid (2 frames): " + "; ".join(
+            f"{e['label']} {e['frames_per_s']} frames/s (first call "
+            f"{e['first_call_s']} s)" for e in report) + f" on {card}")
+    return {k: l_depth[k] + l_sbs[k] for k in l_depth}
+
+
+def phase_steps_extract(tmp: Path) -> None:
+    """frame_extractor.main on a 12-frame clip, where the media engine
+    starts."""
+    if not media_engine_starts():
+        log("phase 5: frame_extractor not run: the vscmedia media engine "
+            "(libav) does not start here")
+        return
+    from vsc_tpu_torch.io.media import make_test_video
+    from vsc_tpu_torch.pipeline import frame_extractor
+    video = tmp / "clip.mkv"
+    make_test_video(video, width=320, height=180, frames=12,
+                    framerate="24/1", with_audio=False)
+    wf = new_workflow(tmp / "extract", video)
+    step_main(frame_extractor, [str(wf)], "frame_extractor")
+    got = len(list((wf / "frames").glob("frame_*.png")))
+    check(got == 12, f"frame_extractor wrote {got} frames")
+    log("phase 5: frame_extractor.main extracted 12 frames")
+
+
+def phase_steps_timing(wf: Path, frames, sbs_argv, card: str) -> None:
+    """The SBS step again on the same frames: under torch.profiler (the
+    device's busy share over the step), then with and without its
+    per-dispatch health probe (the probe replaced here only), in the order
+    probe, none, none, probe."""
+    import shutil
+    from vsc_tpu_torch.parallel import health
+    from vsc_tpu_torch.pipeline import sbs_generator
+
+    def rerun(what):
+        shutil.rmtree(wf / "sbs")
+        write_frames(wf, frames)
+        return step_main(sbs_generator, [str(wf), *sbs_argv], what)[0]
+
+    shutil.rmtree(wf / "sbs")
+    write_frames(wf, frames)
+    log("phase 5: SBS step under torch.profiler: " + step_busy_share(
+        sbs_generator, [str(wf), *sbs_argv], "profiled SBS step")
+        + f" on {card}")
+    real = health.check_accelerator_health
+    walls = {}
+    for probe in (True, False, False, True):
+        health.check_accelerator_health = (
+            real if probe else lambda device=None, timeout=None: True)
+        try:
+            walls.setdefault(probe, []).append(rerun("SBS step"))
+        finally:
+            health.check_accelerator_health = real
+    n = len(frames)
+    log("phase 5: SBS step with the per-dispatch probe " + ", ".join(
+        f"{w:.3f} s ({n / w:.2f} frames/s)" for w in walls[True])
+        + "; without " + ", ".join(
+        f"{w:.3f} s ({n / w:.2f} frames/s)" for w in walls[False])
+        + f" on {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default="1,2,3,4,5")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1392,6 +1737,9 @@ def main(argv=None) -> int:
     launches = phase_slice(BATCH, BATCHES, card) if 3 in phases else {}
     if 4 in phases:
         phase_cli()
+    step = phase_steps(card) if 5 in phases else {}
+    for name, n in step.items():     # the step path's, where phase 3 ran not
+        launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")
                   for m in sys.modules),
           "the port pulled in jax or the JAX package")
@@ -1399,6 +1747,7 @@ def main(argv=None) -> int:
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches.get(name, 0),
+         "step_launches": step.get(name, 0),
          **{k: kern.get(name, {}).get(k)
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")}}

@@ -938,3 +938,106 @@ def test_split_attention_kernel_matches_plain(dev, dtype, B, T, H, Dh):
     else:    # the qkv kernel's bounds (test_attention_kernel_matches_plain)
         assert float(diff.max()) <= 8e-3
         assert float(diff.mean()) <= 1e-5
+
+
+def _step_workflow(tmp_path, n, h=108, w=192, save_16bit=False):
+    """A workflow made by the port's workflow_init with n seeded frames
+    (no media engine: the frames are written as the extractor names
+    them)."""
+    from vsc_tpu_torch.config import load_config, save_config
+    from vsc_tpu_torch.io.image import write_rgb
+    from vsc_tpu_torch.pipeline import workflow_init
+    video = tmp_path / "input.mkv"
+    video.touch()
+    wf = tmp_path / "workflow"
+    assert workflow_init.main(["--input-video", str(video),
+                               "--workflow-dir", str(wf)]) == 0
+    config = load_config(wf)
+    config["depth"]["save_16bit"] = save_16bit
+    save_config(wf, config)
+    rng = np.random.default_rng(19)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for i in range(1, n + 1):
+        base = 127 + 100 * np.sin(xx / (9.0 + i)) * np.cos(yy / 7.0)
+        rgb = np.stack([base, 0.7 * base + 40, 255 - base], -1)
+        rgb = np.clip(rgb + rng.normal(0, 6, rgb.shape), 0, 255)
+        frames.append(rgb.astype(np.uint8))
+        assert write_rgb(wf / "frames" / f"frame_{i:06d}.png", frames[-1])
+    return wf, np.stack(frames)
+
+
+def _padded_batches(x, batch):
+    for i in range(0, len(x), batch):
+        b = x[i:i + batch]
+        yield np.concatenate([b] + [b[-1:]] * (batch - len(b)))
+
+
+@pytest.mark.parametrize("save_16bit", [False, True])
+def test_depth_step_on_card_equals_build_depth_fn(dev, tmp_path, monkeypatch,
+                                                  save_16bit):
+    """The depth step CLI on the card (small DepthPro from seed 0, bf16, a
+    ragged last batch): its files equal build_depth_fn on the same padded
+    batches bit for bit."""
+    import functools
+    from vsc_tpu_torch.io.image import read_depth
+    from vsc_tpu_torch.models import DepthProConfig, ViTConfig
+    from vsc_tpu_torch.models import bootstrap
+    from vsc_tpu_torch.pipeline import depth_map_generator as step
+    cfg = DepthProConfig(
+        encoder=ViTConfig(img_size=32, patch_size=4, embed_dim=128, depth=4,
+                          num_heads=2),
+        img_size=128, tile_size=32, hook_block_ids=(0, 2),
+        decoder_features=16, dims_encoder=(16, 24, 32, 32))
+    monkeypatch.setattr(bootstrap, "resolve_checkpoint", lambda: None)
+    monkeypatch.setattr(step, "build_depth_fn", functools.partial(
+        step.build_depth_fn, model_cfg=cfg))
+    wf, frames = _step_workflow(tmp_path, 5, save_16bit=save_16bit)
+    before = _cuda.LAUNCHES["attention"]
+    assert step.main([str(wf), "--model", "depthpro", "--batch-size", "4",
+                      "--no-interactive"]) == 0
+    assert _cuda.LAUNCHES["attention"] > before
+    fn = step.build_depth_fn("depthpro", 128, 108, 192, save_16bit,
+                             device=dev)
+    want = np.concatenate([fn(torch.from_numpy(b).to(dev)).cpu().numpy()
+                           for b in _padded_batches(frames, 4)])[:5]
+    ext = "tif" if save_16bit else "png"
+    got = np.stack([read_depth(wf / "depth_maps" / f"depth_frame_{i:06d}.{ext}")
+                    for i in range(1, 6)])
+    assert got.dtype == (np.uint16 if save_16bit else np.uint8)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("depth_dtype", [np.uint8, np.uint16])
+def test_sbs_step_on_card_equals_generate_sbs(dev, tmp_path, depth_dtype):
+    """The SBS step CLI on the card at the StereoParams() defaults
+    (super_sampling 3, the planar-u8 branch; a ragged last batch): its
+    PNGs equal generate_sbs on the same padded batches bit for bit, and
+    every default-path SBS kernel launched."""
+    from vsc_tpu_torch.io.image import read_rgb, write_quantized_depth
+    from vsc_tpu_torch.pipeline import sbs_generator
+    wf, frames = _step_workflow(tmp_path, 5)
+    top = np.iinfo(depth_dtype).max
+    yy, xx = np.mgrid[0:108, 0:192]
+    depth = []
+    for i in range(5):
+        d = 0.5 + 0.3 * np.sin(xx / (13.0 + i)) + 0.2 * (yy > 50)
+        depth.append(np.round(d / d.max() * top).astype(depth_dtype))
+        ext = "tif" if depth_dtype == np.uint16 else "png"
+        assert write_quantized_depth(
+            depth[-1], wf / "depth_maps" / f"depth_frame_{i + 1:06d}.{ext}")
+    depth = np.stack(depth)
+    _cuda.reset_launches()
+    assert sbs_generator.main([str(wf), "--batch-size", "4",
+                               "--no-interactive"]) == 0
+    assert all(_cuda.LAUNCHES[k] > 0 for k in (
+        "blur", "warp", "postprocess", "upsample", "pool", "pyramid",
+        "finish")), _cuda.LAUNCHES
+    want = np.concatenate([
+        generate_sbs(torch.from_numpy(r).to(dev), torch.from_numpy(d).to(dev),
+                     StereoParams()).cpu().numpy()
+        for r, d in zip(_padded_batches(frames, 4),
+                        _padded_batches(depth, 4))])[:5]
+    got = np.stack([read_rgb(wf / "sbs" / f"sbs_{i:06d}.png")
+                    for i in range(1, 6)])
+    assert np.array_equal(got, want)

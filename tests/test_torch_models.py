@@ -125,3 +125,21 @@ def test_seeded_init_is_deterministic():
     assert torch.all(sd["encoder.patch_encoder.blocks.0.ls1.gamma"] == 1e-5)
     assert torch.all(sd["head.0.bias"] == 0)
     assert 0.01 < float(sd["encoder.image_encoder.pos_embed"].std()) < 0.03
+
+
+@pytest.mark.parametrize("stub", ["luminance_depth", "gradient_depth"])
+@pytest.mark.parametrize("h, w", [(1, 5), (37, 24), (108, 96)])
+def test_stub_depth_equals_jax(stub, h, w):
+    """The weight-free depth stubs (vsc_tpu/models/stub.py) on [-1, 1]
+    images: the same nearness as JAX's, the ramp bit for bit."""
+    import vsc_tpu.models.stub as jstub
+    import vsc_tpu_torch.models.stub as tstub
+    x = np.random.default_rng(h).uniform(-1, 1, (2, h, w, 3)).astype(
+        np.float32)
+    want = np.asarray(getattr(jstub, stub)(jnp.asarray(x)))
+    got = getattr(tstub, stub)(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, h, w)
+    if stub == "gradient_depth":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 20, proc.stdout     # every sub-package was walked
+    assert n >= 49, proc.stdout     # every module of the port was walked
 
 
 def banned_imports(path: Path) -> list[str]:

@@ -9,11 +9,14 @@ It mirrors the reference's sub-package layout and module names:
              wrappers of the hand-written Hopper kernels (``*_cuda.py``)
   models/    the DepthPro ViT encoder/decoder as ``nn.Module``s, the stub
              depth model, and the JAX-parameter carrier
-  pipeline/  ``build_depth_fn`` and the streaming converter CLI
-  parallel/  the accelerator health probe
+  pipeline/  the step CLIs (workflow_init, frame_extractor,
+             depth_map_generator with ``build_depth_fn``, sbs_generator,
+             sbs_tester) and the streaming converter CLI
+  parallel/  the accelerator health probe, batch placement
   config/, io/, utils/, native/, pipeline/{chunk_generator,
              video_concatenator}  the port's own copies of the JAX package's
-             framework-free layers (workflow config, media engine, probe)
+             framework-free layers (workflow config, media engine, probe,
+             image I/O, the step pipeline's threads, console)
   csrc/      CUDA C++ sources of the kernels (built with nvcc at first use)
 
 Public functions keep the reference's layouts ([B, H, W, 3] u8 frames,
@@ -22,7 +25,7 @@ Public functions keep the reference's layouts ([B, H, W, 3] u8 frames,
 the CPU.
 """
 
-__all__ = ["default_device"]
+__all__ = ["cli_device", "default_device"]
 
 
 def default_device(force_cpu: bool = False):
@@ -37,3 +40,14 @@ def default_device(force_cpu: bool = False):
                            "the CPU is asked for (force_cpu=True, --cpu, "
                            "device='cpu')")
     return torch.device("cuda", 0)
+
+
+def cli_device(force_cpu: bool = False):
+    """``default_device(force_cpu)`` for a CLI's main. On the card, float32
+    matmuls and convolutions stay full float32 (no TF32), as on the CPU."""
+    import torch
+    device = default_device(force_cpu)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device

@@ -2,16 +2,16 @@
 Stub depth model (PyTorch)
 ==========================
 
-Port of ``vsc_tpu/models/stub.py:luminance_depth``: a weight-free depth
-estimator with DepthPro's contract ([B, S, S, 3] in [-1, 1] -> [B, S, S]
-nearness), for CPU tests and runs without a model.
+Port of ``vsc_tpu/models/stub.py``: weight-free depth estimators with
+DepthPro's contract ([B, S, S, 3] in [-1, 1] -> [B, S, S] nearness), for
+CPU tests and runs without a model.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["luminance_depth"]
+__all__ = ["luminance_depth", "gradient_depth"]
 
 
 def luminance_depth(images):
@@ -22,3 +22,15 @@ def luminance_depth(images):
                    device=lum.device)
     x = torch.nn.functional.conv2d(lum[:, None], k, padding=2)
     return (x[:, 0] + 1.0) * 0.5
+
+
+def gradient_depth(images):
+    """Synthetic top-far/bottom-near ramp: content-independent, for
+    deterministic golden tests of the downstream stereo stages."""
+    B, H, W, _ = images.shape
+    # jnp.linspace as XLA compiles it: i * (1 / (H - 1)), the end exact
+    ramp = torch.arange(H, dtype=torch.float32, device=images.device)
+    if H > 1:
+        ramp = ramp * (1.0 / (H - 1))
+        ramp[-1] = 1.0
+    return ramp[None, :, None].expand(B, H, W)

@@ -13,6 +13,7 @@ The port's own copy of ``vsc_tpu/native``: the binary is built from
 
 from __future__ import annotations
 
+import os
 import shutil
 import subprocess
 import threading
@@ -45,11 +46,18 @@ def vscmedia_path(build: bool = True) -> Path | None:
         make = shutil.which("make")
         if make is None:
             return None
+        # built under a name of this process's own and renamed into place,
+        # so a process that finds the binary never finds it half written
+        # (test workers may build it at the same time)
+        tmp = _NATIVE_DIR / f"{_BINARY.name}.{os.getpid()}.tmp"
         try:
             subprocess.run(
-                [make, "-C", str(_NATIVE_DIR)],
+                [make, "-C", str(_NATIVE_DIR), f"BIN={tmp.name}"],
                 check=True, capture_output=True, text=True, timeout=300,
             )
-        except (subprocess.CalledProcessError, subprocess.TimeoutExpired):
+            os.replace(tmp, _BINARY)
+        except (subprocess.CalledProcessError, subprocess.TimeoutExpired,
+                OSError):
+            tmp.unlink(missing_ok=True)
             return None
     return _BINARY if _BINARY.exists() else None

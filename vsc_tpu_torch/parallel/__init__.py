@@ -1,1 +1,2 @@
-"""Device-level concerns of the port: the accelerator health probe."""
+"""Device-level concerns of the port: the accelerator health probe
+(``health.py``) and batch placement for the step CLIs (``auto.py``)."""

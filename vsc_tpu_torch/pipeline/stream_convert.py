@@ -88,6 +88,7 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.parallel import health
     from vsc_tpu_torch.pipeline import depth_map_generator
+    from vsc_tpu_torch.utils.profiling import Throughput, trace
 
     device = torch.device(device) if device is not None else default_device()
     input_video = get_path(workflow_path, config, "input_video")
@@ -130,6 +131,7 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
         frame_iter = decode_frames(input_video, W, H, start=resume_decode_from)
         pbar = tqdm(total=total, initial=done_upto, unit="frame",
                     mininterval=0.5)
+        meter = Throughput()
         frame_no = done_upto
         probe_every = max(1, -(-PROBE_EVERY_FRAMES // max(batch_size, 1)))
         batches_since_probe = 0
@@ -158,76 +160,79 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
             rgb = np.frombuffer(raw, np.uint8).reshape(1, H, W, 3)
             carry_sbs = compute_batch(np.repeat(rgb, batch_size, axis=0), 1)
 
-        while frame_no < total or total == 0:
-            if not health.check_accelerator_health(device):
-                raise AccelFailure("accelerator health check failed")
-            batches_since_probe = 0
-            start_frame = frame_no if frame_no > 0 else 1
-            end_target = (min(frame_no + chunk_size, total) if total
-                          else frame_no + chunk_size)
-            out = chunks_dir / f"sbs_{start_frame:06d}_{end_target:06d}.mkv"
-            sink = RawFrameSink(out, 2 * W, H, framerate, crf=crf,
-                                preset=preset)
-            produced = 0
-            try:
-                if carry_sbs is not None:
-                    sink.write(carry_sbs.tobytes())
-                eof = False
-                last_sbs = None
-                while frame_no + produced < end_target:
-                    raws = []
-                    while len(raws) < batch_size:
-                        if frame_no + produced + len(raws) >= end_target:
+        with trace("stream_convert"):
+            while frame_no < total or total == 0:
+                if not health.check_accelerator_health(device):
+                    raise AccelFailure("accelerator health check failed")
+                batches_since_probe = 0
+                start_frame = frame_no if frame_no > 0 else 1
+                end_target = (min(frame_no + chunk_size, total) if total
+                              else frame_no + chunk_size)
+                out = chunks_dir / f"sbs_{start_frame:06d}_{end_target:06d}.mkv"
+                sink = RawFrameSink(out, 2 * W, H, framerate, crf=crf,
+                                    preset=preset)
+                produced = 0
+                try:
+                    if carry_sbs is not None:
+                        sink.write(carry_sbs.tobytes())
+                    eof = False
+                    last_sbs = None
+                    while frame_no + produced < end_target:
+                        raws = []
+                        while len(raws) < batch_size:
+                            if frame_no + produced + len(raws) >= end_target:
+                                break
+                            raw = next(frame_iter, None)
+                            if raw is None:
+                                eof = True
+                                break
+                            raws.append(raw)
+                        if not raws:
                             break
-                        raw = next(frame_iter, None)
-                        if raw is None:
-                            eof = True
+                        n = len(raws)
+                        rgb = np.frombuffer(b"".join(raws), np.uint8).reshape(
+                            n, H, W, 3)
+                        if n < batch_size:  # a fixed dispatch shape
+                            rgb = np.concatenate(
+                                [rgb, np.repeat(rgb[-1:], batch_size - n, 0)])
+                        if batches_since_probe >= probe_every:
+                            if not health.check_accelerator_health(device):
+                                raise AccelFailure(
+                                    "accelerator health check failed")
+                            batches_since_probe = 0
+                        sbs = compute_batch(rgb, n)
+                        batches_since_probe += 1
+                        sink.write(sbs.tobytes())
+                        last_sbs = sbs[-1:]
+                        produced += n
+                        pbar.update(n)
+                        meter.add(n)
+                        pbar.set_postfix_str(f"{meter.rate:.2f} fps")
+                        if eof:
                             break
-                        raws.append(raw)
-                    if not raws:
-                        break
-                    n = len(raws)
-                    rgb = np.frombuffer(b"".join(raws), np.uint8).reshape(
-                        n, H, W, 3)
-                    if n < batch_size:  # a fixed dispatch shape
-                        rgb = np.concatenate(
-                            [rgb, np.repeat(rgb[-1:], batch_size - n, 0)])
-                    if batches_since_probe >= probe_every:
-                        if not health.check_accelerator_health(device):
-                            raise AccelFailure(
-                                "accelerator health check failed")
-                        batches_since_probe = 0
-                    sbs = compute_batch(rgb, n)
-                    batches_since_probe += 1
-                    sink.write(sbs.tobytes())
-                    last_sbs = sbs[-1:]
-                    produced += n
-                    pbar.update(n)
-                    if eof:
-                        break
-            except AccelFailure:
-                sink.close(success=False)
-                pbar.close()
-                raise
-            except Exception as e:
-                sink.close(success=False)
-                pbar.close()
-                print(f"ERROR: streaming conversion failed: {e}")
-                return False
+                except AccelFailure:
+                    sink.close(success=False)
+                    pbar.close()
+                    raise
+                except Exception as e:
+                    sink.close(success=False)
+                    pbar.close()
+                    print(f"ERROR: streaming conversion failed: {e}")
+                    return False
 
-            if produced == 0:
-                sink.close(success=False)
-                break
-            carry_sbs = last_sbs
-            actual_end = frame_no + produced
-            sink.close(success=True)
-            if actual_end != end_target:
-                out.rename(chunks_dir
-                           / f"sbs_{start_frame:06d}_{actual_end:06d}.mkv")
-            frame_no = actual_end
-            _free_space_cleanup(workflow_path, config, frame_no)
-            if eof:
-                break
+                if produced == 0:
+                    sink.close(success=False)
+                    break
+                carry_sbs = last_sbs
+                actual_end = frame_no + produced
+                sink.close(success=True)
+                if actual_end != end_target:
+                    out.rename(chunks_dir
+                               / f"sbs_{start_frame:06d}_{actual_end:06d}.mkv")
+                frame_no = actual_end
+                _free_space_cleanup(workflow_path, config, frame_no)
+                if eof:
+                    break
         pbar.close()
         print(f"Encoded up to frame {frame_no}.")
 
@@ -251,13 +256,12 @@ def main(argv=None) -> int:
                         help="Stop after chunk encoding")
     args = parser.parse_args(argv)
 
-    import torch
-    from vsc_tpu_torch import default_device
-    device = default_device(force_cpu=args.cpu)
-    if device.type == "cuda":
-        # float32 matmuls and convolutions stay full float32 (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    from vsc_tpu_torch import cli_device
+    try:
+        device = cli_device(force_cpu=args.cpu)
+    except RuntimeError as e:
+        print(f"ERROR: {e}")
+        return 1
     if not args.workflow_path.is_dir():
         print(f"ERROR: Workflow directory not found: {args.workflow_path}")
         return 1
@@ -279,4 +283,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from vsc_tpu_torch.utils.console import (ensure_utf8_console,
+                                             set_terminal_title)
+    ensure_utf8_console()
+    set_terminal_title("stream_convert " + " ".join(sys.argv[1:]))
     sys.exit(main())
