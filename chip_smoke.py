@@ -54,7 +54,19 @@ Drives the port's streaming main path on the card and checks it:
      TIFF depth; a crop checked against the CPU plain path), and
      ``sbs_tester --grid``; each step's frames/s after a warm-up run on
      other frames, the device's busy share over each step (torch.profiler),
-     and the SBS step with and without its per-dispatch health probe.
+     and the SBS step with and without its per-dispatch health probe;
+  6. the orchestrator: ``runtime/orchestrator``'s ``Orchestrator.run()`` at
+     its defaults, as a user runs it, drives the step CLIs as child
+     processes on the card over two 24-frame 1080p clips, with the seeded
+     full-width DepthPro written as the npz weight cache the children load:
+     every child exits 0, workflows.yaml reads DONE as JAX's would, video
+     2's depth and SBS PNGs equal ``build_depth_fn`` and ``generate_sbs``
+     bit for bit, each chunk decodes to its frames at 3840 x 1080, each
+     depth child's torch.profiler trace shows the qkv attention kernel and
+     each SBS child's the seven default SBS kernels; the run's frames/s,
+     each child's start and exit, the gap from an exit to the next launch.
+     Where vscmedia does not start (no libav), concat is not run, and the
+     run stops once every chunk is written.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -63,6 +75,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py                   # all phases, as the check runs it
     python3 chip_smoke.py --phases 1,2      # build + kernel checks only
     python3 chip_smoke.py --phases 1,5      # build + the step workflow
+    python3 chip_smoke.py --phases 1,6      # build + the orchestrator
 """
 
 from __future__ import annotations
@@ -1331,25 +1344,14 @@ def pair_holes(frame, depth, params) -> None:
         f"holes; postprocess {time_ms(lambda: real(*seen[0])):.3f} ms")
 
 
-def media_engine_starts() -> bool:
-    """The port's vscmedia engine builds and starts (a binary whose libav
-    libraries are absent cannot even start)."""
-    from vsc_tpu_torch.native import vscmedia_path
-    engine = vscmedia_path()
-    try:
-        return engine is not None and subprocess.run(
-            [str(engine)], capture_output=True, timeout=60).returncode != 127
-    except OSError:
-        return False
-
-
 def phase_cli():
+    from vsc_tpu_torch.native import vscmedia_path
     missing = []
     try:
         import tqdm  # noqa: F401
     except ImportError:
         missing.append("tqdm")
-    if not media_engine_starts():
+    if vscmedia_path() is None:        # counts only a binary that starts
         missing.append("the vscmedia media engine (libav)")
     if missing:
         log(f"phase 4: not run: missing {' and '.join(missing)}")
@@ -1650,7 +1652,8 @@ def phase_steps(card: str) -> dict:
 def phase_steps_extract(tmp: Path) -> None:
     """frame_extractor.main on a 12-frame clip, where the media engine
     starts."""
-    if not media_engine_starts():
+    from vsc_tpu_torch.native import vscmedia_path
+    if vscmedia_path() is None:
         log("phase 5: frame_extractor not run: the vscmedia media engine "
             "(libav) does not start here")
         return
@@ -1702,9 +1705,429 @@ def phase_steps_timing(wf: Path, frames, sbs_argv, card: str) -> None:
         + f" on {card}")
 
 
+ORCH_FRAMES = 24        # phase 6: frames of each of its two 1080p clips
+ORCH_TIMEOUT = 600.0    # phase 6: the orchestrated run's limit, seconds
+# phase 6: the kernels each child's trace must show, by trace-name pattern
+TRACE_KERNELS = {
+    "depth_map_generator": {"attention": r"qkv_attention_kernel"},
+    "sbs_generator": {
+        "blur": r"::blur_kernel[<(]", "warp": r"::warp_kernel[<(]",
+        "postprocess": r"::postprocess_tile_kernel[<(]",
+        "upsample": r"::upsample_kernel[<(]",
+        "pool": r"::(pool_eye4|pool2)_kernel[<(]",
+        "pyramid": r"::pyramid_(down|top|up)_kernel[<(]",
+        "finish": r"::sharpen_downscale_kernel[<(]"},
+}
+
+
+def write_npz_cache(dev) -> tuple[Path, float, float]:
+    """The seeded full-width DepthPro's parameters, in float32, written as
+    the npz weight cache a user's first hub download leaves
+    (``models/bootstrap.npz_cache_path()``). Returns the path, the write
+    seconds and the seconds of one load of it into a model on ``dev``."""
+    import numpy as np
+    import torch
+    from vsc_tpu_torch.models.bootstrap import npz_cache_path
+    from vsc_tpu_torch.models.convert import jax_flat_from_state_dict
+    from vsc_tpu_torch.pipeline.depth_map_generator import (DTYPE_ENV,
+                                                            build_depthpro)
+    with env_set(DTYPE_ENV, "float32"):
+        model = build_depthpro(1536, dev, seed=0)
+    dest = npz_cache_path()
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    tmp = dest.with_name(dest.stem + ".tmp.npz")
+    t0 = time.perf_counter()
+    np.savez(str(tmp), **jax_flat_from_state_dict(model.state_dict(), model))
+    os.replace(tmp, dest)
+    t_write = time.perf_counter() - t0
+    del model
+    t0 = time.perf_counter()
+    model = build_depthpro(1536, dev, checkpoint=str(dest))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return dest, t_write, t_load
+
+
+def cv2_writes_ffv1(path: Path) -> bool:
+    """cv2's FFV1 writer opens and writes (the chunk step's encoder where
+    vscmedia does not start)."""
+    import cv2
+    import numpy as np
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FFV1"),
+                             24.0, (64, 48))
+    ok = writer.isOpened()
+    if ok:
+        writer.write(np.zeros((48, 64, 3), np.uint8))
+    writer.release()
+    return ok and path.is_file() and path.stat().st_size > 0
+
+
+def run_orchestrated(yaml_path: Path, cfg, skip: set, timeout: float):
+    """The port's orchestrator over yaml_path in this process's main thread
+    (its signal handlers need it), its dashboard into a buffer. Steps in
+    ``skip`` are never started; the run then stops once nothing runs and
+    every workflow has its persistent steps DONE and, unless the chunk step
+    is skipped too, all its chunks. It also stops at the first FAILED or
+    ERROR. Returns the orchestrator; its ``events`` hold every log line
+    with its host time, ``t0`` and ``t1`` the run's start and end."""
+    import asyncio
+    import re
+
+    from rich.console import Console
+    from vsc_tpu_torch.runtime import workflow_metrics as wm
+    from vsc_tpu_torch.runtime.orchestrator import Orchestrator
+    from vsc_tpu_torch.runtime.workflow_state import (PERSISTENT_STEPS,
+                                                       StepStatus,
+                                                       get_step_status,
+                                                       load_workflows)
+
+    class Timed(Orchestrator):
+        def log(self, message):
+            self.events.append((time.perf_counter(), message))
+            super().log(message)
+
+        def _can_start(self, step, workflow_path, workflow):
+            return step not in skip and super()._can_start(
+                step, workflow_path, workflow)
+
+    orch = Timed(yaml_path, load_workflows(yaml_path), cfg,
+                 console=Console(file=io.StringIO(), width=160))
+    orch.events = []
+
+    def should_stop():
+        if any(re.search(r"(FAILED|ERROR)\[/", m) for _, m in orch.events):
+            return True
+        if orch.active or not skip:
+            return False
+        wm.invalidate_cache()
+        return all(
+            all(get_step_status(wf.get(s)) == StepStatus.DONE
+                for s in PERSISTENT_STEPS)
+            and ("chunk_generator" in skip
+                 or wm.is_all_chunks_complete(Path(p)))
+            for p, wf in orch.workflows.items())
+
+    async def drive():
+        task = asyncio.create_task(orch.run())
+        try:
+            while not task.done():
+                if should_stop():
+                    orch.stop_event.set()
+                    orch.wakeup.set()
+                await asyncio.sleep(0.25)
+            await task
+        finally:
+            if not task.done():       # the limit cut the run
+                task.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await task
+                await orch.shutdown()
+
+    orch.t0 = time.perf_counter()
+    try:
+        asyncio.run(asyncio.wait_for(drive(), timeout=timeout))
+    except asyncio.TimeoutError:
+        raise RuntimeError(
+            f"check failed: the orchestrated run exceeded {timeout:.0f} s; "
+            "its log: " + " | ".join(m for _, m in orch.events[-30:]))
+    orch.t1 = time.perf_counter()
+    return orch
+
+
+def child_spans(orch) -> list[dict]:
+    """Each child's step, workflow, start and exit (seconds from the run's
+    start) and whether it exited 0, from the orchestrator's own STARTED /
+    DONE / FAILED lines."""
+    import re
+    spans, running = [], {}
+    for t, message in orch.events:
+        m = re.search(r"(STARTED|DONE|FAILED|ERROR)\[/[\w ]+\]: (\w+) for "
+                      r"(\S+)", message)
+        if not m:
+            continue
+        what, step, name = m.groups()
+        if what == "STARTED":
+            running[(step, name)] = dict(step=step, workflow=name,
+                                         start=t - orch.t0)
+        else:
+            span = running.pop((step, name))
+            span.update(end=t - orch.t0, ok=what == "DONE")
+            spans.append(span)
+    check(not running, f"children with no exit line: {list(running)}")
+    return sorted(spans, key=lambda s: s["start"])
+
+
+def trace_kernel_counts(profile_dir: Path) -> dict:
+    """{step: [(trace file, {kernel: launches})]} from each child's own
+    trace: its device kernel events whose names match TRACE_KERNELS."""
+    import re
+    out = {}
+    for step, patterns in TRACE_KERNELS.items():
+        for path in sorted((profile_dir / step).glob("*/trace.json")):
+            names = [e.get("name", "") for e in json.loads(
+                path.read_text())["traceEvents"]
+                if str(e.get("cat", "")).lower() == "kernel"]
+            out.setdefault(step, []).append((path, {
+                k: sum(1 for name in names if re.search(p, name))
+                for k, p in patterns.items()}))
+    return out
+
+
+def check_chunks(wf: Path, n: int, size=(3840, 1080)) -> list[str]:
+    """Every chunk of the workflow decodes (cv2) to its frame count at
+    ``size``, and the last ends at frame n; returns their names."""
+    import cv2
+    from vsc_tpu_torch.config import get_path, load_config
+    chunks = sorted(get_path(wf, load_config(wf), "chunks").glob("sbs_*.mkv"))
+    check(bool(chunks), f"{wf}: no chunks")
+    for c in chunks:
+        first, last = (int(x) for x in c.stem.split("_")[1:3])
+        cap = cv2.VideoCapture(str(c))
+        got = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+               int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+        frames = 0
+        while cap.read()[0]:
+            frames += 1
+        cap.release()
+        check(got == tuple(size) and frames == last - first + 1,
+              f"{c.name}: {got}, {frames} frames")
+    check(max(int(c.stem.split("_")[2]) for c in chunks) == n,
+          f"{wf}: chunks end before frame {n}")
+    return [c.name for c in chunks]
+
+
+def log_timeline(orch, spans, what: str, card: str) -> None:
+    """The run's wall time and frames/s; each child's start and exit, split
+    at its first and last output line (start-up, work, the rest: a traced
+    child writes its trace after its last line); the gap from each exit to
+    the next launch; whether depth of video 2 overlapped SBS of video 1."""
+    wall = orch.t1 - orch.t0
+    log(f"phase 6: {what}: the run took {wall:.2f} s for {2 * ORCH_FRAMES} "
+        f"frames of two 1080p videos, {2 * ORCH_FRAMES / wall:.3f} frames/s, "
+        f"on {card}")
+    parts = []
+    for s in spans:
+        tag = f"[{s['step']}|{s['workflow']}]"
+        lines = [t - orch.t0 for t, m in orch.events if tag in m
+                 and s["start"] <= t - orch.t0 <= s["end"]]
+        split = (f"{lines[0] - s['start']:.2f} + {lines[-1] - lines[0]:.2f} + "
+                 f"{s['end'] - lines[-1]:.2f}" if lines else "no lines")
+        parts.append(f"{s['step']}|{s['workflow']} {s['start']:.2f} - "
+                     f"{s['end']:.2f} ({split})")
+    log(f"phase 6: {what}: children, start - exit in s from the run's start "
+        "(start-up to the first line + to the last + to the exit): "
+        + "; ".join(parts))
+    # each launch after the first tick's comes when a child's exit wakes
+    # the scheduler: its gap is from the last exit before it
+    gaps = []
+    for s in spans:
+        before = [o["end"] for o in spans if o["end"] <= s["start"]]
+        if before:
+            gaps.append((s["start"] - max(before),
+                         f"{s['step']}|{s['workflow']}"))
+    first = [f"{s['step']}|{s['workflow']}" for s in spans
+             if not any(o["end"] <= s["start"] for o in spans)]
+    log(f"phase 6: {what}: the first tick ({spans[0]['start']:.2f} s) "
+        "launched " + ", ".join(first) + "; each later launch after the last "
+        "exit before it, s: " + "; ".join(f"{w} {g:.3f}" for g, w in gaps)
+        + (f" (max {max(g for g, _ in gaps):.3f}; the tick is 5 s)"
+           if gaps else ""))
+
+    def span(step, video):
+        return next(s for s in spans if s["step"] == step
+                    and s["workflow"] == video)
+    d2, s1 = span("depth_map_generator", "video2"), span("sbs_generator",
+                                                          "video1")
+    overlap = min(d2["end"], s1["end"]) - max(d2["start"], s1["start"])
+    log(f"phase 6: {what}: depth of video 2 ({d2['start']:.2f} - "
+        f"{d2['end']:.2f}) " + (
+            f"overlapped SBS of video 1 ({s1['start']:.2f} - "
+            f"{s1['end']:.2f}) by {overlap:.2f} s" if overlap > 0 else
+            f"did not overlap SBS of video 1 ({s1['start']:.2f} - "
+            f"{s1['end']:.2f})"))
+
+
+def orchestrate(root: Path, clips, skip: set, engine) -> tuple:
+    """Two workflows (workflow_init.main; video 2 with free_space none)
+    under root, one workflows.yaml, the orchestrator at its defaults over
+    them. Fails unless every child exited 0 and the YAML reads as JAX's
+    orchestrator writes it. Returns (orchestrator, child spans, workflows,
+    yaml path)."""
+    import re
+
+    import yaml
+    from vsc_tpu_torch.config import load_config, save_config
+    from vsc_tpu_torch.runtime.orchestrator import OrchestratorConfig
+    from vsc_tpu_torch.runtime.workflow_state import (PERSISTENT_STEPS,
+                                                       load_workflows)
+    wfs = [new_workflow(root / f"video{i}", clip)
+           for i, clip in enumerate(clips, 1)]
+    config = load_config(wfs[1])
+    config["free_space"] = {"sbs_generator": "none",
+                            "chunk_generator": "none"}
+    save_config(wfs[1], config)
+    yaml_path = root / "workflows.yaml"
+    yaml_path.write_text(yaml.safe_dump({str(w): None for w in wfs},
+                                        sort_keys=False))
+    orch = run_orchestrated(yaml_path, OrchestratorConfig(), skip,
+                            ORCH_TIMEOUT)
+    failed = [m for _, m in orch.events if re.search(r"(FAILED|ERROR)\[/", m)]
+    if failed:
+        for t, m in orch.events:
+            log(f"phase 6: log {t - orch.t0:8.2f} s: {m}")
+    check(not failed, f"children failed: {failed}")
+    spans = child_spans(orch)
+    check(bool(spans) and all(s["ok"] for s in spans), f"children {spans}")
+    saved = yaml.safe_load(yaml_path.read_text())
+    done = dict.fromkeys(PERSISTENT_STEPS, "DONE")
+    want = {str(w.resolve()): ("DONE" if engine is not None else done)
+            for w in wfs}
+    check(saved == want, f"workflows.yaml: {saved}")
+    check(all(all(wf[s] == "DONE" for s in PERSISTENT_STEPS)
+              for wf in load_workflows(yaml_path).values()),
+          "workflows.yaml loads with steps not DONE")
+    return orch, spans, wfs, yaml_path
+
+
+def phase_orchestrator(card: str) -> None:
+    """Phase 6: the port's orchestrator drives the step CLIs as child
+    processes on the card, two 1080p clips from input to SBS chunks: once
+    with VSC_TPU_PROFILE_DIR set (the checks), once without (the timing)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from vsc_tpu_torch.config import get_path, load_config
+    from vsc_tpu_torch.io.image import read_depth, read_rgb
+    from vsc_tpu_torch.io.media import make_test_video
+    from vsc_tpu_torch.native import vscmedia_path
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.pipeline import depth_map_generator, sbs_generator
+    from vsc_tpu_torch.runtime.workflow_metrics import DISK_SPACE_THRESHOLD_GB
+    from vsc_tpu_torch.utils.profiling import PROFILE_ENV
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    n = ORCH_FRAMES
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as env:
+        tmp = Path(tmp)
+        env.enter_context(env_set("VSC_TPU_CACHE", str(tmp / "cache")))
+        # the children's lines reach the orchestrator as they print them
+        env.enter_context(env_set("PYTHONUNBUFFERED", "1"))
+        npz, t_write, t_load = write_npz_cache(dev)
+        log(f"phase 6: the seeded full-width DepthPro (seed 0) as the npz "
+            f"weight cache: {npz.stat().st_size / 2 ** 30:.3f} GiB written "
+            f"in {t_write:.2f} s; one load into a bf16 model on the card "
+            f"{t_load:.2f} s on {card}")
+        free = shutil.disk_usage(tmp).free / 2 ** 30
+        check(free > DISK_SPACE_THRESHOLD_GB + 4,
+              f"{tmp} has {free:.1f} GiB free: the orchestrator's disk gate "
+              f"blocks every launch below {DISK_SPACE_THRESHOLD_GB} GiB, and "
+              "the two runs write ~4 GiB")
+        log(f"phase 6: {free:.1f} GiB free beside the workflows")
+
+        engine = vscmedia_path()
+        skip = set()
+        if engine is not None:
+            log(f"phase 6: media backend vscmedia ({engine} starts)")
+        else:
+            skip.add("video_concatenator")
+            log("phase 6: media backend cv2: the vscmedia engine does not "
+                "start here and cannot be built (no libav)")
+            log("phase 6: concat not run: video_concatenator muxes with "
+                "vscmedia only (cv2 has no concat or audio)")
+            if not cv2_writes_ffv1(tmp / "ffv1_probe.mkv"):
+                skip.add("chunk_generator")
+                log("phase 6: chunking not run: cv2 cannot open an FFV1 "
+                    "writer here and vscmedia does not start")
+        clips = [tmp / f"clip{i}{'.mkv' if engine else '.mp4'}"
+                 for i in (1, 2)]
+        for clip in clips:
+            make_test_video(clip, width=1920, height=1080, frames=n,
+                            framerate="24/1", with_audio=engine is not None)
+        log(f"phase 6: two {n}-frame 1920x1080 clips "
+            f"({'vscmedia' if engine else 'cv2 mp4v'}), workflows from "
+            "workflow_init.main, video 2 with free_space none; the "
+            "orchestrator at its defaults (1 depth, 2 SBS, 1 mutex "
+            "process, 5 s tick)")
+
+        with env_set(PROFILE_ENV, str(tmp / "profile")):
+            orch, spans, wfs, _ = orchestrate(tmp / "traced", clips, skip,
+                                              engine)
+        log(f"phase 6: traced run: {len(spans)} children, each exited 0 ("
+            + ", ".join(sorted({s['step'] for s in spans}))
+            + "); workflows.yaml as JAX's orchestrator writes it")
+
+        # video 2's depth and SBS against in-process calls on its frames
+        wf = wfs[1]
+        read = np.stack([read_rgb(f) for f in
+                         sorted((wf / "frames").glob("frame_*.png"))])
+        check(read.shape == (n, 1080, 1920, 3), f"frames {read.shape}")
+        got = np.stack([read_depth(f) for f in sorted(
+            (wf / "depth_maps").glob("depth_frame_*.png"))])
+        fn = depth_map_generator.build_depth_fn(
+            "depthpro", 1536, 1080, 1920, False, device=dev, seed=0)
+        b = depth_map_generator.DEFAULT_BATCH
+        want = []
+        for i in range(0, n, b):
+            x = read[i:i + b]
+            x = np.concatenate([x] + [x[-1:]] * (b - len(x)))
+            want.append(fn(torch.from_numpy(x).to(dev))[:n - i].cpu().numpy())
+        want = np.concatenate(want)
+        del fn
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"depth PNGs {got.shape} differ from build_depth_fn")
+        sbs_files = sorted((wf / "sbs").glob("sbs_*.png"))
+        check(len(sbs_files) == n, f"{len(sbs_files)} SBS frames")
+        b = sbs_generator.DEFAULT_BATCH
+        for i in range(0, n, b):
+            ref = generate_sbs(torch.from_numpy(read[i:i + b]).to(dev),
+                               torch.from_numpy(got[i:i + b]).to(dev),
+                               StereoParams()).cpu().numpy()
+            for f, w in zip(sbs_files[i:i + b], ref):
+                check(np.array_equal(read_rgb(f), w),
+                      f"{f.name} differs from generate_sbs")
+        log(f"phase 6: video 2's depth PNGs equal build_depth_fn (seed 0, "
+            f"batches of {depth_map_generator.DEFAULT_BATCH}) and its SBS "
+            "PNGs equal generate_sbs on its frames and that depth, bit for "
+            f"bit ({n} frames)")
+        check(not list((wfs[0] / "frames").glob("*.png")),
+              "video 1's frames were not deleted (free_space 'frame')")
+
+        # the chunks and, where concat ran, the output videos
+        for w in wfs:
+            if "chunk_generator" not in skip:
+                log(f"phase 6: {w.name}: " + ", ".join(check_chunks(w, n))
+                    + f" decode to {n} frames at 3840x1080")
+            if engine is not None:
+                out = get_path(w, load_config(w), "output_video")
+                check(out.is_file(), f"{out} missing")
+
+        # the kernels each child launched, from its own trace
+        counts = trace_kernel_counts(tmp / "profile")
+        for step in TRACE_KERNELS:
+            runs = sum(1 for s in spans if s["step"] == step)
+            traces = counts.get(step, [])
+            check(len(traces) == runs == 2,
+                  f"{step}: {len(traces)} traces of {runs} runs")
+            for path, c in traces:
+                check(all(v > 0 for v in c.values()),
+                      f"{step} {path.parent.name}: kernels {c}")
+            log(f"phase 6: {step} kernel launches, one trace a child: "
+                + "; ".join(f"{p.parent.name}: {c}" for p, c in traces))
+        log_timeline(orch, spans, "traced run", card)
+
+        # the same again without traces, as a user runs it: the timing
+        orch, spans, _, _ = orchestrate(tmp / "untraced", clips, skip,
+                                        engine)
+        log(f"phase 6: untraced run: {len(spans)} children, each exited 0; "
+            "workflows.yaml as JAX's orchestrator writes it")
+        log_timeline(orch, spans, "untraced run", card)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1738,6 +2161,8 @@ def main(argv=None) -> int:
     if 4 in phases:
         phase_cli()
     step = phase_steps(card) if 5 in phases else {}
+    if 6 in phases:
+        phase_orchestrator(card)
     for name, n in step.items():     # the step path's, where phase 3 ran not
         launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")

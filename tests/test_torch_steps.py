@@ -409,6 +409,8 @@ def test_profile_dir_traces_the_depth_step(frames_wf, tmp_path, monkeypatch):
     assert tdepth.main([str(frames_wf), *STUB, "--end-frame", "2"]) == 0
     assert [p.name for p in (tmp_path / "prof").iterdir()] == [
         "depth_map_generator"]
-    events = json.loads((tmp_path / "prof" / "depth_map_generator"
-                         / "trace.json").read_text())["traceEvents"]
+    traces = list((tmp_path / "prof" / "depth_map_generator").glob(
+        "*/trace.json"))
+    assert len(traces) == 1, traces     # one directory for the run
+    events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("conv2d" in e.get("name", "") for e in events)

@@ -26,6 +26,7 @@ FFV1 instead so tests still run everywhere.
 
 from __future__ import annotations
 
+import os
 import re
 import subprocess
 from pathlib import Path
@@ -195,26 +196,39 @@ def encode_chunk(sbs_dir: Path | str, start_number: int, num_frames: int,
 
 def _encode_chunk_cv2(sbs_dir, start_number, num_frames, framerate,
                       temp_path, pattern, progress_cb) -> None:
-    """Fallback encoder: lossless FFV1 (cv2's ffmpeg lacks libx265)."""
+    """Fallback encoder: lossless FFV1 (cv2's ffmpeg lacks libx265). cv2
+    takes the container from the file name and refuses ``.mkv.tmp``, so it
+    writes ``<temp_path>.mkv`` and renames that to ``temp_path``."""
     import cv2
     from vsc_tpu_torch.io.probe import parse_framerate
     fps = parse_framerate(framerate) or 25.0
+    mkv = Path(temp_path).with_name(Path(temp_path).name + ".mkv")
     writer = None
-    for i in range(num_frames):
-        path = Path(sbs_dir) / (pattern % (start_number + i))
-        frame = cv2.imread(str(path), cv2.IMREAD_COLOR)
-        if frame is None:
-            raise MediaError(f"missing frame during encode: {path}")
-        if writer is None:
-            writer = cv2.VideoWriter(str(temp_path), cv2.VideoWriter_fourcc(*"FFV1"),
-                                     fps, (frame.shape[1], frame.shape[0]))
-            if not writer.isOpened():
-                raise MediaError("cv2 fallback encoder could not open FFV1 writer")
-        writer.write(frame)
-        if progress_cb and (i + 1) % 25 == 0:
-            progress_cb(i + 1)
-    if writer is not None:
-        writer.release()
+    done = False
+    try:
+        for i in range(num_frames):
+            path = Path(sbs_dir) / (pattern % (start_number + i))
+            frame = cv2.imread(str(path), cv2.IMREAD_COLOR)
+            if frame is None:
+                raise MediaError(f"missing frame during encode: {path}")
+            if writer is None:
+                writer = cv2.VideoWriter(
+                    str(mkv), cv2.VideoWriter_fourcc(*"FFV1"), fps,
+                    (frame.shape[1], frame.shape[0]))
+                if not writer.isOpened():
+                    raise MediaError(
+                        "cv2 fallback encoder could not open FFV1 writer")
+            writer.write(frame)
+            if progress_cb and (i + 1) % 25 == 0:
+                progress_cb(i + 1)
+        done = True
+    finally:
+        if writer is not None:
+            writer.release()
+        if not done:
+            mkv.unlink(missing_ok=True)
+    if mkv.exists():
+        os.replace(mkv, temp_path)
     if progress_cb:
         progress_cb(num_frames)
 

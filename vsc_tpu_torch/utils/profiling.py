@@ -6,9 +6,12 @@ Port of ``vsc_tpu/utils/profiling.py``:
 
   - trace(): a torch.profiler trace around a pipeline section, enabled by
     setting VSC_TPU_PROFILE_DIR; host activity always, the card's when one
-    is present. The Chrome trace lands in ``$VSC_TPU_PROFILE_DIR/<label>/``
-    (open it in Perfetto or chrome://tracing). The JAX package takes a
-    jax.profiler trace there.
+    is present. The Chrome trace lands in a directory of the run's own,
+    ``$VSC_TPU_PROFILE_DIR/<label>/<time>_<pid>_<suffix>/trace.json`` (open
+    it in Perfetto or chrome://tracing), so processes that share the
+    directory, as the orchestrator's children do, never overwrite each
+    other's traces. The JAX package takes a jax.profiler trace there, which
+    makes a directory per run too.
   - Throughput: a tiny images/sec meter the step CLIs feed and expose in
     their progress lines (which the orchestrator dashboard mirrors).
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import tempfile
 import time
 
 __all__ = ["trace", "Throughput", "PROFILE_ENV"]
@@ -27,15 +31,18 @@ PROFILE_ENV = "VSC_TPU_PROFILE_DIR"
 @contextlib.contextmanager
 def trace(label: str):
     """torch.profiler trace around a section when VSC_TPU_PROFILE_DIR is
-    set, written as ``<dir>/<label>/trace.json``; otherwise free."""
+    set, written as ``<dir>/<label>/<run>/trace.json`` with a new ``<run>``
+    directory per call; otherwise free."""
     profile_dir = os.environ.get(PROFILE_ENV)
     if not profile_dir:
         yield
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
-    target = os.path.join(profile_dir, label)
-    os.makedirs(target, exist_ok=True)
+    parent = os.path.join(profile_dir, label)
+    os.makedirs(parent, exist_ok=True)
+    target = tempfile.mkdtemp(
+        prefix=time.strftime("%Y%m%d_%H%M%S_") + f"{os.getpid()}_", dir=parent)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
