@@ -66,7 +66,20 @@ Drives the port's streaming main path on the card and checks it:
      each SBS child's the seven default SBS kernels; the run's frames/s,
      each child's start and exit, the gap from an exit to the next launch.
      Where vscmedia does not start (no libav), concat is not run, and the
-     run stops once every chunk is written.
+     run stops once every chunk is written;
+  7. ``parallel/`` on the one card, every mesh naming cuda:0 twice: (a) a
+     (2 data x 1) mesh, full-width DepthPro through ``build_depth_fn`` and
+     ``generate_sbs`` at the defaults on a 1080p batch of 2 placed by
+     ``shard_batch``: each shard's depth equals the unsharded depth_fn on
+     its frame (batch 1) and the SBS equals the unsharded batch's, bit for
+     bit, with 48 qkv launches a shard and each SBS kernel launched twice
+     its count in one unsharded call; (b) a (1 x 2) mesh, DepthPro tensor-
+     and sequence-parallel (``seq_shard``): 96 qkv launches a 2-frame batch
+     at 8 heads on [70 | 2, 577, 1536], the u8 depth within the
+     float32-vs-bf16 difference of the same frames; (c) the dry run
+     (``parallel/dryrun``) in-process and as two processes over gloo; (d)
+     the time of (a) and (b) a batch beside the unsharded time, and the
+     memory each holds: the cost of sharding on one card, not a speed-up.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -76,6 +89,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py --phases 1,2      # build + kernel checks only
     python3 chip_smoke.py --phases 1,5      # build + the step workflow
     python3 chip_smoke.py --phases 1,6      # build + the orchestrator
+    python3 chip_smoke.py --phases 1,7      # build + parallel/
 """
 
 from __future__ import annotations
@@ -2125,9 +2139,187 @@ def phase_orchestrator(card: str) -> None:
             "workflows.yaml as JAX's orchestrator writes it")
         log_timeline(orch, spans, "untraced run", card)
 
+def run_peak_gib(fn) -> float:
+    """GiB the card allocates over one fn() above what it held before."""
+    import torch
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
+MESH_SBS_KERNELS = ("blur", "warp", "postprocess", "upsample", "pool",
+                    "pyramid", "finish")
+
+
+def phase_parallel(card: str) -> None:
+    """Phase 7: the port's parallel layer on the one card, each mesh naming
+    cuda:0 twice: (a) a data mesh, (b) tensor and sequence parallelism,
+    (c) the dry run in-process and over two gloo processes, (d) the
+    sharding overhead beside the unsharded time."""
+    import torch
+    from vsc_tpu_torch.models import DepthProConfig, ViTConfig
+    from vsc_tpu_torch.models import vit as vit_module
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.parallel import dryrun
+    from vsc_tpu_torch.parallel.auto import gather, shard_batch
+    from vsc_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    dev = torch.device("cuda", 0)
+    params = StereoParams()
+    torch.cuda.empty_cache()
+    host = frames_u8(2, dev, 70).cpu().numpy()
+    x1 = torch.from_numpy(host).to(dev)
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    fn = build_depth_fn("depthpro", 1536, 1080, 1920, False, device=dev,
+                        seed=0)
+    w_one = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    ref_depth = [fn(x1[i:i + 1]) for i in range(2)]   # batch 1 each
+    ref_depth2 = fn(x1)
+    _cuda.reset_launches()
+    ref_sbs = generate_sbs(x1, torch.cat(ref_depth), params)
+    torch.cuda.synchronize()
+    l_ref = dict(_cuda.LAUNCHES)
+    log(f"phase 7: unsharded full-width DepthPro (seed 0, bf16) built and "
+        f"run in {time.perf_counter() - t0:.1f} s; one unsharded SBS call "
+        f"on the 2-frame batch launches {l_ref}")
+
+    # (a) a data mesh: cuda:0 named twice, one frame a shard
+    mesh = make_mesh(2, 1, devices=[dev, dev])
+    held = torch.cuda.memory_allocated()
+    fn_dp = build_depth_fn("depthpro", 1536, 1080, 1920, False, seed=0,
+                           mesh=mesh)
+    w_dp = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    xs = shard_batch(host, dev, mesh)
+    check(isinstance(xs, Sharded) and [p.device for p in xs.parts]
+          == [dev, dev], f"shard_batch placed {xs}")
+    _cuda.reset_launches()
+    d_dp = fn_dp(xs)
+    s_dp = generate_sbs(xs, d_dp, params)
+    torch.cuda.synchronize()
+    l_dp = dict(_cuda.LAUNCHES)
+    log(f"phase 7: (a) data mesh {mesh}: launches of one 2-frame batch "
+        f"{l_dp}")
+    check(isinstance(d_dp, Sharded) and isinstance(s_dp, Sharded),
+          "the data mesh's depth and SBS are not sharded")
+    for i in range(2):
+        check(torch.equal(d_dp.parts[i], ref_depth[i]),
+              f"(a) shard {i}'s depth differs from depth_fn on its frame")
+    check(torch.equal(gather(s_dp), ref_sbs.cpu()),
+          "(a) sharded SBS differs from the unsharded batch's")
+    check(l_dp["attention"] == 2 * 48, f"(a) attention launches {l_dp}")
+    check(all(l_ref[k] > 0 and l_dp[k] == 2 * l_ref[k]
+              for k in MESH_SBS_KERNELS), f"(a) SBS launches {l_dp} vs "
+          f"{l_ref} a call")
+    log("phase 7: (a) each shard's u8 depth equals the unsharded depth_fn "
+        "on its frame (batch 1) and the SBS equals the unsharded batch's, "
+        "bit for bit; qkv attention 48 launches a shard, each SBS kernel "
+        "launched once a shard (twice its count in one unsharded call)")
+
+    # (b) tensor + sequence parallel: a (1 data x 2 model) mesh
+    mesh_tp = make_mesh(1, 2, devices=[dev, dev])
+    cfg_tp = DepthProConfig(img_size=1536, tile_size=384,
+                            encoder=ViTConfig(img_size=384, seq_shard=True))
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    fn_tp = build_depth_fn("depthpro", 1536, 1080, 1920, False, seed=0,
+                           model_cfg=cfg_tp, mesh=mesh_tp)
+    torch.cuda.synchronize()
+    w_tp = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    log(f"phase 7: (b) TP 2 + seq_shard DepthPro built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    x_tp = shard_batch(host, dev, mesh_tp)
+    check(type(x_tp) is torch.Tensor, "a one-row mesh placed a Sharded batch")
+    fn_tp(x_tp)                                           # warm-up
+    shapes = set()
+    real = vit_module.qkv_attention
+
+    def recording(qkv, heads, scale):
+        shapes.add((tuple(qkv.shape), heads))
+        return real(qkv, heads, scale)
+    vit_module.qkv_attention = recording
+    try:
+        fn_tp(x_tp)
+    finally:
+        vit_module.qkv_attention = real
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    d_tp = fn_tp(x_tp)
+    torch.cuda.synchronize()
+    l_tp = dict(_cuda.LAUNCHES)
+    log(f"phase 7: (b) launches of one 2-frame batch {l_tp}; qkv kernel "
+        f"shapes (qkv, heads): {sorted(shapes)}")
+    check(l_tp["attention"] == 96 and l_tp["attention_split"] == 0,
+          f"(b) attention launches {l_tp}")
+    check(shapes == {((70, 577, 1536), 8), ((2, 577, 1536), 8)},
+          f"(b) qkv kernel shapes {shapes}")
+    m_tp, t_tp = depth_diff(d_tp, ref_depth2)
+    with env_set("VSC_TPU_DEPTH_DTYPE", "float32"):
+        fn32 = build_depth_fn("depthpro", 1536, 1080, 1920, False,
+                              device=dev, seed=0)
+        d32 = fn32(x1)
+    del fn32
+    m32, t32 = depth_diff(d32, ref_depth2)
+    log(f"phase 7: (b) u8 depth, TP 2 + seq_shard vs unsharded bf16: mean "
+        f"diff {m_tp:.4f}, max {t_tp} codes; float32 vs bf16 on the same "
+        f"frames: mean {m32:.4f}, max {t32} codes")
+    check(int(d_tp.max()) > int(d_tp.min()), "(b) depth is constant")
+    check(m_tp <= m32 and t_tp <= t32,
+          "(b) the sharded depth differs from the unsharded by more than "
+          "float32 from bf16")
+
+    # (d) readings: sharding overhead on one card (not a speed-up)
+    t_one = time_ms(lambda: render_sbs(x1, fn, params), reps=3)
+    t_dp = time_ms(lambda: render_sbs(xs, fn_dp, params), reps=3)
+    t_d1 = time_ms(lambda: fn(x1), reps=3)
+    t_dtp = time_ms(lambda: fn_tp(x_tp), reps=3)
+    run_one = run_peak_gib(lambda: render_sbs(x1, fn, params))
+    run_dp = run_peak_gib(lambda: render_sbs(xs, fn_dp, params))
+    run_d1 = run_peak_gib(lambda: fn(x1))
+    run_tp = run_peak_gib(lambda: fn_tp(x_tp))
+    log(f"phase 7: (d) per 2-frame batch on {card}: (a) data mesh depth + "
+        f"SBS {t_dp:.1f} ms against unsharded {t_one:.1f} ms "
+        f"({t_dp / t_one:.3f}x); (b) TP 2 + seq_shard depth {t_dtp:.1f} ms "
+        f"against unsharded {t_d1:.1f} ms ({t_dtp / t_d1:.3f}x)")
+    log(f"phase 7: (d) device memory, weights held / a batch's peak above "
+        f"them, GiB: unsharded {w_one:.3f} / depth + SBS {run_one:.3f}, "
+        f"depth {run_d1:.3f}; (a) {w_dp:.3f} / {run_dp:.3f}; (b) "
+        f"{w_tp:.3f} / {run_tp:.3f}. One card named twice: sharding "
+        "overhead, not scale-out")
+    del fn, fn_dp, fn_tp
+    torch.cuda.empty_cache()
+
+    # (c) the dry run, in-process and over two gloo processes
+    _cuda.reset_launches()
+    line = dryrun.run(8)
+    l_dry = dict(_cuda.LAUNCHES)
+    log(f"phase 7: (c) in-process: {line}")
+    check(line.startswith("dryrun_multichip OK") and "cpu" not in line
+          and l_dry["attention"] > 0, f"(c) dry run: {line}, {l_dry}")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vsc_tpu_torch.parallel.dryrun", "8",
+         "--processes", "2", "--timeout", "240"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    ok = [ln for ln in proc.stdout.splitlines()
+          if ln.startswith("dryrun_multichip OK")]
+    check(proc.returncode == 0 and len(ok) == 1 and "cpu" not in ok[0]
+          and "over 2 process(es)" in ok[0],
+          f"(c) dry run over 2 processes: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    log(f"phase 7: (c) 2 processes over gloo, {time.perf_counter() - t0:.1f}"
+        f" s: {ok[0]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -2163,6 +2355,8 @@ def main(argv=None) -> int:
     step = phase_steps(card) if 5 in phases else {}
     if 6 in phases:
         phase_orchestrator(card)
+    if 7 in phases:
+        phase_parallel(card)
     for name, n in step.items():     # the step path's, where phase 3 ran not
         launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")

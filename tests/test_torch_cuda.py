@@ -189,6 +189,33 @@ def test_postprocess_kernel_hole_layouts(dev, smoothing, layout):
     _pp_case(eye4, smoothing, dev)
 
 
+def test_postprocess_kernel_writes_every_pixel_of_every_launch(dev):
+    """The output comes from torch.empty, so a pixel a launch fails to
+    write keeps what the card's memory held. With the free blocks of the
+    output's size filled with another byte before each of 1000 launches on
+    a pair whose every tile takes the hole path, each launch equals the
+    first, which equals the plain version. (The hole-pixel list's counter
+    was once reset with no barrier before other warps added to it, so a
+    late reset could drop a hole pixel from the polish: its output was
+    never written, a few launches in a few hundred.)"""
+    eye4 = _pp_frame(4, 1080, 2048, 25, dev)
+    eye4[3] = (_rand((4, 1080, 2048), 26, dev) > 0.3).to(torch.uint8)
+    assert bool(hole_tiles(eye4[3]).all())
+    eye4, want = _pp_case(eye4, 1.0, dev)
+    smooth_q = _pyramid_fill(torch.movedim(eye4[:3], 0, -1).float(),
+                             eye4[3].float()[..., None], coarse_factor=4,
+                             return_coarse=True).permute(3, 0, 1, 2)
+    smooth_q = smooth_q.contiguous()
+    bad = 0
+    for i in range(1000):
+        junk = [torch.full_like(want, 1 + i % 254) for _ in range(4)]
+        del junk
+        got = postprocess_eye(eye4, smooth_q, 1.0)
+        bad += not torch.equal(got, want)
+        del got
+    assert bad == 0, f"{bad} of 1000 launches left pixels unwritten"
+
+
 @pytest.mark.parametrize("b,h,w,smoothing", [
     (1, 7, 5, 1.0), (1, 1, 40, 4.0), (2, 50, 1, 0.0),   # smaller than a tile
     (1, TILE_H + 1, TILE_W + 1, 4.0),                   # one-pixel tiles

@@ -12,7 +12,9 @@ It mirrors the reference's sub-package layout and module names:
   pipeline/  the step CLIs (workflow_init, frame_extractor,
              depth_map_generator with ``build_depth_fn``, sbs_generator,
              sbs_tester) and the streaming converter CLI
-  parallel/  the accelerator health probe, batch placement
+  parallel/  device meshes, batch placement over the data axis, the ViT's
+             tensor-parallel rules and collectives, multi-host start-up,
+             the sharded dry run, the accelerator health probe
   config/, io/, utils/, native/, pipeline/{chunk_generator,
              video_concatenator}  the port's own copies of the JAX package's
              framework-free layers (workflow config, media engine, probe,

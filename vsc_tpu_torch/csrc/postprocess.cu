@@ -322,6 +322,7 @@ postprocess_tile_kernel(const uint8_t* __restrict__ eye4,
   // last sweep's input, free now). The tile's hole pixels are listed.
   float* val = vbuf;
   if (threadIdx.x == 0) *count = 0;     // every thread read it sweeps ago
+  __syncthreads();      // the reset lands before any thread adds to it
   constexpr int e3 = kHalo - kPolishR;
   for_box<kTileW + 2 * kPolishR>(
       th + 2 * kPolishR, tw + 2 * kPolishR, [&](int rr, int cc) {

@@ -27,6 +27,12 @@ except that ``VSC_TPU_PALLAS_DECONV=1`` sends every ``ConvT2x2`` site the
 guard ``deconv2x2_supported`` accepts to the deconv kernel
 (ops/deconv_cuda.py), as the JAX module does at
 ``vsc_tpu/models/depthpro.py:200-220``; the route is off by default.
+
+On a mesh with a model axis, ``parallel/sharding.shard_params`` gives the
+blocks of both encoders their model-axis ranks (tensor parallel, and
+sequence parallel under ``encoder.seq_shard``; ``models/vit.py``); the
+convolutions and the decoder stay whole on the replica's device, as
+``vsc_tpu/parallel/sharding.param_shardings`` leaves them replicated.
 """
 
 from __future__ import annotations

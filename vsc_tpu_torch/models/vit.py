@@ -15,8 +15,24 @@ strides: the qkv kernel for bf16 at head dim 64 up to 640 tokens (input
 other head dims and more tokens (input 2048 and up), as ``attention_route``
 decides (the JAX module's choice at
 ``vsc_tpu/models/vit.py:185-221``). Matmuls are ``nn.Linear`` (the JAX
-package leaves them to XLA). The folded-LayerNorm and sequence-sharding variants of the JAX module are
-not ported.
+package leaves them to XLA). The folded-LayerNorm variant of the JAX
+module is not ported.
+
+Tensor and sequence parallelism (``vsc_tpu/models/vit.py:141-233``):
+``parallel/sharding.shard_params`` gives every block of a replica its
+model-axis ranks (``Block.ranks``), each a narrower ``Block`` on its own
+device holding H/mp heads of qkv and proj and 1/mp of the MLP hidden
+width. The blocks then run column-parallel (qkv, fc1) and row-parallel
+(proj, fc2), with one float32 sum of the partial products across ranks
+each, the Megatron pattern of ``vsc_tpu/parallel/sharding.py``; each rank
+picks its attention route for its own H/mp heads. With
+``ViTConfig.seq_shard`` the token stream between blocks is split over the
+model axis (T padded to a multiple of mp): it is all-gathered, and the pad
+dropped, before each LayerNorm, and the row-parallel sum is a
+reduce-scatter, so the attention never sees a pad token. The values equal
+the JAX module's ``_seq_constraint`` form. In bf16 each rank's partial
+product is rounded to bf16 before the float32 sum, one rounding more than
+the unsharded ``nn.Linear`` makes.
 """
 
 from __future__ import annotations
@@ -29,6 +45,10 @@ from torch import nn
 
 from vsc_tpu_torch.ops.attention_cuda import (attention_route, qkv_attention,
                                               short_seq_attention)
+from vsc_tpu_torch.parallel.collectives import (all_gather, all_reduce,
+                                                broadcast, gather_tokens,
+                                                reduce_scatter, split_tokens)
+from vsc_tpu_torch.parallel.mesh import on_device
 
 __all__ = ["ViTConfig", "ViT", "init_flax_like"]
 
@@ -43,6 +63,9 @@ class ViTConfig:
     num_heads: int = 16
     mlp_ratio: float = 4.0
     layerscale_init: float = 1.0e-5
+    # split the token axis over the "model" mesh axis between blocks
+    # (sequence parallelism); takes effect once the blocks are sharded
+    seq_shard: bool = False
 
     @property
     def grid_size(self) -> int:
@@ -69,44 +92,100 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def hidden(self, x):
+        return nn.functional.gelu(self.fc1(x))
+
     def forward(self, x):
-        return self.fc2(nn.functional.gelu(self.fc1(x)))
+        return self.fc2(self.hidden(x))
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
-        super().__init__()
-        self.num_heads = num_heads
-        self.scale = 1.0 / math.sqrt(dim // num_heads)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+    """``inner`` (default ``dim``) is the width of the heads: a model-axis
+    rank holds ``num_heads`` = H/mp heads and ``inner`` = D/mp."""
 
-    def forward(self, x):
+    def __init__(self, dim: int, num_heads: int, inner: int | None = None):
+        super().__init__()
+        inner = dim if inner is None else inner
+        self.num_heads = num_heads
+        self.scale = 1.0 / math.sqrt(inner // num_heads)
+        self.qkv = nn.Linear(dim, 3 * inner)
+        self.proj = nn.Linear(inner, dim)
+
+    def core(self, x):
+        """The attention output before ``proj``, [B, T, inner]."""
         qkv = self.qkv(x)
         B, T, D3 = qkv.shape
         H, Dh = self.num_heads, D3 // (3 * self.num_heads)
         if attention_route(qkv.dtype, Dh, T) == "qkv":
-            out = qkv_attention(qkv.contiguous(), H, self.scale)
-        else:
-            q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
-            out = short_seq_attention(q, k, v, self.scale).reshape(B, T, -1)
-        return self.proj(out)
+            return qkv_attention(qkv.contiguous(), H, self.scale)
+        q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
+        return short_seq_attention(q, k, v, self.scale).reshape(B, T, -1)
+
+    def forward(self, x):
+        return self.proj(self.core(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    """A pre-LN transformer block; ``shards`` > 1 builds one model-axis
+    rank's share of it (H / shards heads, 1 / shards of the MLP hidden
+    width). ``ranks`` is None, or the list of such rank blocks, one per
+    device of the model axis, that ``parallel/sharding.shard_params``
+    gives the block (not registered as submodules: they live on their own
+    devices and are not part of the state dict)."""
+
+    def __init__(self, cfg: ViTConfig, shards: int = 1):
         super().__init__()
-        D = cfg.embed_dim
+        D, H = cfg.embed_dim, cfg.num_heads
+        if H % shards or D % shards or int(D * cfg.mlp_ratio) % shards:
+            raise ValueError(f"{H} heads, width {D} do not split over "
+                             f"{shards} model-axis ranks")
+        self.cfg = cfg
         self.norm1 = nn.LayerNorm(D, eps=1e-6)
-        self.attn = Attention(D, cfg.num_heads)
+        self.attn = Attention(D, H // shards, inner=D // shards)
         self.ls1 = LayerScale(D, cfg.layerscale_init)
         self.norm2 = nn.LayerNorm(D, eps=1e-6)
-        self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
+        self.mlp = Mlp(D, int(D * cfg.mlp_ratio) // shards)
         self.ls2 = LayerScale(D, cfg.layerscale_init)
+        self.ranks = None
 
     def forward(self, x):
         x = x + self.ls1(self.attn(self.norm1(x)))
         return x + self.ls2(self.mlp(self.norm2(x)))
+
+    def forward_sharded(self, xs, tokens: int | None = None) -> list:
+        """The block over its model-axis ranks. ``xs[r]`` is rank r's
+        activation on its device: a copy of the [B, T, D] stream (tensor
+        parallel, ``tokens`` None), or its token chunk of a stream of
+        ``tokens`` real tokens (sequence parallel, ``split_tokens``).
+        Returns the same form."""
+        ranks = self.ranks
+        devices = [r.norm1.weight.device for r in ranks]
+        for which in ("attn", "mlp"):
+            full = xs if tokens is None else all_gather(xs, devices, tokens)
+            partial = []
+            for r, d, x in zip(ranks, devices, full):
+                with on_device(d):      # a rank's kernels on its own card
+                    partial.append(r._partial(which, x))
+            sums = (all_reduce(partial, devices) if tokens is None
+                    else reduce_scatter(partial, devices))
+            xs = [r._residual(which, x, s) for r, x, s in zip(ranks, xs, sums)]
+        return xs
+
+    def _partial(self, which: str, x):
+        """This rank's row-parallel product of sublayer ``which`` ("attn"
+        or "mlp") on the full stream ``x``, without its bias."""
+        if which == "attn":
+            return nn.functional.linear(self.attn.core(self.norm1(x)),
+                                        self.attn.proj.weight)
+        return nn.functional.linear(self.mlp.hidden(self.norm2(x)),
+                                    self.mlp.fc2.weight)
+
+    def _residual(self, which: str, x, total):
+        """``x`` plus the layer-scaled sublayer output, from the float32
+        sum of the ranks' products: the bias added once, one cast."""
+        out, ls = ((self.attn.proj, self.ls1) if which == "attn"
+                   else (self.mlp.fc2, self.ls2))
+        return x + ls((total + out.bias).to(x.dtype))
 
 
 class PatchEmbed(nn.Module):
@@ -145,12 +224,36 @@ class ViT(nn.Module):
         x = self.patch_embed(images)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
         x = x + self.pos_embed
+        if len(self.blocks) and self.blocks[0].ranks is not None:
+            return self._forward_sharded(x, hook_batch)
         hooks = {}
         for i, blk in enumerate(self.blocks):
             x = blk(x)
             if i in self.hook_block_ids:
                 hooks[i] = x if hook_batch is None else x[:hook_batch]
         return self.norm(x), hooks
+
+    def _forward_sharded(self, x, hook_batch: int | None):
+        """The blocks over their model-axis ranks: the stream copied to
+        every rank, or split over the ranks' token chunks under
+        ``cfg.seq_shard``; joined on the first rank's device (this
+        module's) for the hooks and the final norm."""
+        devices = [r.norm1.weight.device for r in self.blocks[0].ranks]
+        tokens = x.shape[1] if self.cfg.seq_shard else None
+        xs = (broadcast(x, devices) if tokens is None
+              else split_tokens(x, devices))
+
+        def whole(xs):
+            return (xs[0] if tokens is None
+                    else gather_tokens(xs, devices[0], tokens))
+
+        hooks = {}
+        for i, blk in enumerate(self.blocks):
+            xs = blk.forward_sharded(xs, tokens)
+            if i in self.hook_block_ids:
+                h = whole(xs)
+                hooks[i] = h if hook_batch is None else h[:hook_batch]
+        return self.norm(whole(xs)), hooks
 
 
 def _lecun_normal_(w, fan_in: int, generator):

@@ -40,6 +40,15 @@ the pair and emits the quarter pool stack, the pyramid starts from that
 stack (or from the pair's own pools under ``VSC_TPU_BF_POOL=0``), and the
 postprocess runs at smoothing 0. Its SBS equals the default route's bit for
 bit.
+
+Inputs placed on a data mesh (``parallel/auto.shard_batch``, both
+``Sharded`` on one mesh whose data axis has more than one device and
+divides the batch) run the SPMD form of ``vsc_tpu/ops/stereo.py:392-459``:
+the whole program is batch-elementwise, so each shard is converted on its
+own device by the same body, with no collectives, and the result is
+``Sharded`` too. Each shard allocates its own buffers (the planar pair the
+warp writes in place among them), so shards that share a device share
+nothing else.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from vsc_tpu_torch.ops.resize import resize
 from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
 from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
                                          forward_warp_pair_planar)
+from vsc_tpu_torch.parallel.mesh import Sharded, on_device
 
 __all__ = ["generate_sbs", "sbs_shapes", "StereoParams"]
 
@@ -148,6 +158,35 @@ def _depth_max(depth) -> float:
     return float("inf")     # float depth: no integer quantization
 
 
+def _data_mesh_of(*inputs):
+    """The mesh to run the SBS program over shard by shard, when every
+    input is ``Sharded`` on one mesh whose data axis has more than one
+    device and divides the batch; else None."""
+    mesh = None
+    for a in inputs:
+        if not isinstance(a, Sharded):
+            return None
+        m = a.mesh
+        if m.shape["data"] <= 1:
+            return None
+        if mesh is not None and m != mesh:
+            return None
+        mesh = m
+        if a.shape[0] % m.shape["data"] != 0:
+            return None
+    return mesh
+
+
+def _generate_sbs_sharded(rgb, depth, params: StereoParams, mesh):
+    """The SPMD form: each shard through the unsharded body on its own
+    device; no collectives."""
+    parts = []
+    for r, d, dev in zip(rgb.parts, depth.parts, mesh.data_devices):
+        with on_device(dev):
+            parts.append(_generate_sbs_impl(r, d, params))
+    return Sharded(tuple(parts), mesh)
+
+
 def generate_sbs(rgb, depth, params: StereoParams | None = None):
     """Batched SBS generation.
 
@@ -158,9 +197,22 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
 
     Returns:
       [B, H, 2W, 3] uint8 side-by-side frames (left | right), on the
-      input's device.
+      input's device. Inputs sharded over a data mesh (``_data_mesh_of``)
+      give a ``Sharded`` result: each device converts its own frames.
     """
     params = params or StereoParams()
+    mesh = _data_mesh_of(rgb, depth)
+    if mesh is not None:
+        return _generate_sbs_sharded(rgb, depth, params, mesh)
+    if isinstance(rgb, Sharded) or isinstance(depth, Sharded):
+        raise ValueError("generate_sbs: sharded inputs need one data mesh "
+                         "of more than one device that divides the batch, "
+                         "for rgb and depth alike")
+    return _generate_sbs_impl(rgb, depth, params)
+
+
+def _generate_sbs_impl(rgb, depth, params: StereoParams):
+    """``generate_sbs`` on one device."""
     depth_max = _depth_max(depth)
     B, H, W, _ = rgb.shape
     s = sbs_shapes(H, W, params)

@@ -111,15 +111,26 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
 
 def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
                    use_16bit: bool, checkpoint: str | None = None, *,
-                   device=None, model_cfg=None, seed: int = 0):
+                   device=None, model_cfg=None, seed: int = 0, mesh=None):
     """Returns f(u8 frames [B, H, W, 3] tensor on ``device``) -> quantized
     depth [B, out_h, out_w] (uint8, or uint16 with ``use_16bit``).
     ``device`` None means ``default_device()`` (the card, or an error).
-    ``model_cfg`` overrides the DepthPro config (tests run a small one)."""
+    ``model_cfg`` overrides the DepthPro config (tests run a small one).
+
+    With a ``mesh`` (``parallel/mesh``) the model is built once, on the
+    mesh's first device, and ``parallel/sharding.shard_params`` places one
+    replica on each data row (a device named twice shares its replica;
+    with a model axis, the replicas' ViT blocks run tensor-parallel over
+    it). f then takes a ``Sharded`` batch (``parallel/auto.shard_batch``),
+    runs each shard on its own row and returns a ``Sharded`` depth that
+    ``generate_sbs`` takes; a plain tensor runs on the first row."""
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.ops.resize import resize
+    from vsc_tpu_torch.parallel.mesh import Sharded, on_device
 
-    if device is None:
+    if mesh is not None:
+        device = mesh.devices[0, 0]
+    elif device is None:
         device = default_device()
 
     if model_name == "depthpro":
@@ -127,20 +138,25 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
             input_size = model_cfg.img_size
         model = build_depthpro(input_size, device, cfg=model_cfg,
                                checkpoint=checkpoint, seed=seed)
-
-        def infer(x):
-            return model(x)["canonical_inverse_depth"]
+        if mesh is not None:
+            from vsc_tpu_torch.parallel.sharding import shard_params
+            models = shard_params(model, mesh)
+            del model
+        else:
+            models = [model]
+        infers = [lambda x, m=m: m(x)["canonical_inverse_depth"]
+                  for m in models]
     elif model_name == "stub":
         from vsc_tpu_torch.models.stub import luminance_depth
-        infer = luminance_depth
+        infers = [luminance_depth] * (1 if mesh is None
+                                      else mesh.shape["data"])
     else:
         raise ValueError(f"unknown depth model: {model_name}")
 
     max_val = 65535.0 if use_16bit else 255.0
     out_dtype = torch.uint16 if use_16bit else torch.uint8
 
-    @torch.inference_mode()
-    def depth_fn(frames_u8):
+    def one(infer, frames_u8):
         x = frames_u8.to(torch.float32)
         x = resize(x, input_size, input_size, "bilinear", channel_last=True)
         x = x / 127.5 - 1.0
@@ -150,6 +166,20 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
         d_max = depth.amax(dim=(1, 2), keepdim=True)
         norm = (depth - d_min) / torch.clamp(d_max - d_min, min=1e-12)
         return torch.round(norm * max_val).to(out_dtype)
+
+    @torch.inference_mode()
+    def depth_fn(frames_u8):
+        if not isinstance(frames_u8, Sharded):
+            return one(infers[0], frames_u8)
+        if frames_u8.mesh != mesh:
+            raise ValueError("depth_fn: the batch lies on another mesh than "
+                             "the model")
+        parts = []
+        for infer, part, dev in zip(infers, frames_u8.parts,
+                                    mesh.data_devices):
+            with on_device(dev):
+                parts.append(one(infer, part))
+        return Sharded(tuple(parts), mesh)
 
     return depth_fn
 
@@ -167,8 +197,8 @@ def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
     from vsc_tpu_torch.io.image import read_rgb, write_quantized_depth
     from vsc_tpu_torch.io.prefetch import SaveError, run_pipeline
     from vsc_tpu_torch.models.bootstrap import resolve_checkpoint
-    from vsc_tpu_torch.parallel.auto import (device_count, pad_to_multiple,
-                                             shard_batch)
+    from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
+                                             pad_to_multiple, shard_batch)
     from vsc_tpu_torch.utils.frame_utils import extract_frame_number
     from vsc_tpu_torch.utils.profiling import trace
 
@@ -220,14 +250,15 @@ def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
         print("\033[33mNo depth checkpoint available "
               f"(${CHECKPOINT_ENV} unset, no cache, no network); "
               "using luminance stub model.\033[0m")
-    ndev = device_count()
+    mesh = data_mesh(device)
+    ndev = device_count(device)
     name = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
     print(f"Using: {device}{name} ({ndev} device(s)), model={model_name}, "
           f"batch={batch_size}")
 
     depth_fn = build_depth_fn(model_name, input_size, H, W, use_16bit,
-                              checkpoint, device=device)
+                              checkpoint, device=device, mesh=mesh)
 
     def load_batch(chunk):
         # ragged final batches padded up to the FULL batch size: every
@@ -241,10 +272,10 @@ def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
         return frames
 
     def compute(batch):
-        return depth_fn(shard_batch(batch, device))
+        return depth_fn(shard_batch(batch, device, mesh))
 
     def split_results(result, chunk):
-        host = result.cpu().numpy()   # waits for the batch
+        host = gather(result).numpy()   # waits for the batch
         return [(host[i], chunk[i][1]) for i in range(len(chunk))]
 
     def save_one(entry):

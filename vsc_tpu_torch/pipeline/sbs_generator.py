@@ -69,8 +69,8 @@ def run(workflow_path: Path, config: dict, *, batch_size=DEFAULT_BATCH,
                                            run_pipeline)
     from vsc_tpu_torch.ops.stereo import generate_sbs
     from vsc_tpu_torch.parallel import health
-    from vsc_tpu_torch.parallel.auto import (device_count, pad_to_multiple,
-                                             shard_batch)
+    from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
+                                             pad_to_multiple, shard_batch)
     from vsc_tpu_torch.utils.profiling import trace
 
     device = torch.device(device) if device is not None else default_device()
@@ -104,12 +104,18 @@ def run(workflow_path: Path, config: dict, *, batch_size=DEFAULT_BATCH,
         print("All frames already processed.")
         return 0
 
-    ndev = device_count()
+    mesh = data_mesh(device)
+    ndev = device_count(device)
     name = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
     print(f"Using: {device}{name} ({ndev} device(s)), batch={batch_size}")
+    # the probe runs on every card the batches go to
+    probed = [device] if mesh is None else mesh.distinct_devices()
 
-    if not health.check_accelerator_health(device):
+    def healthy():
+        return all(health.check_accelerator_health(d) for d in probed)
+
+    if not healthy():
         print("\nERROR: accelerator health check failed")
         return health.ACCEL_ERROR_EXIT_CODE
 
@@ -134,15 +140,15 @@ def run(workflow_path: Path, config: dict, *, batch_size=DEFAULT_BATCH,
         # per-dispatch health probe: the device equivalent of the
         # reference's per-frame GPU known-answer test
         # (sbs_generator.py:312-317)
-        if not health.check_accelerator_health(device):
+        if not healthy():
             accel_failed.append(True)
             raise PipelineAbort("accelerator health check failed")
         rgbs, depths = batch
-        return generate_sbs(shard_batch(rgbs, device),
-                            shard_batch(depths, device), params)
+        return generate_sbs(shard_batch(rgbs, device, mesh),
+                            shard_batch(depths, device, mesh), params)
 
     def split_results(result, chunk):
-        host = result.cpu().numpy()   # waits for the batch
+        host = gather(result).numpy()   # waits for the batch
         return [(host[i], chunk[i]) for i in range(len(chunk))]
 
     def save_one(entry):

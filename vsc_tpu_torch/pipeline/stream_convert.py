@@ -47,7 +47,8 @@ DISPATCH_COLD_TIMEOUT = float(
 
 def render_sbs(rgb_u8, depth_fn, params: StereoParams):
     """Device work of one batch: rgb_u8 [B, H, W, 3] uint8 tensor ->
-    sbs_u8 [B, H, 2W, 3] uint8 tensor, on the input's device."""
+    sbs_u8 [B, H, 2W, 3] uint8 tensor, on the input's device (``Sharded``
+    in, ``Sharded`` out, on a data mesh)."""
     from vsc_tpu_torch.ops.stereo import generate_sbs
     return generate_sbs(rgb_u8, depth_fn(rgb_u8), params)
 
@@ -87,6 +88,8 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     from vsc_tpu_torch.pipeline.chunk_generator import find_chunks
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.parallel import health
+    from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
+                                             pad_to_multiple, shard_batch)
     from vsc_tpu_torch.pipeline import depth_map_generator
     from vsc_tpu_torch.utils.profiling import Throughput, trace
 
@@ -116,11 +119,20 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
             model_name = "depthpro" if checkpoint else "stub"
         params = StereoParams.from_config(config["stereo"])
         use_16bit = bool(config["depth"]["save_16bit"])
-        if not health.check_accelerator_health(device):
+        mesh = data_mesh(device)
+        probed = [device] if mesh is None else mesh.distinct_devices()
+
+        def healthy():
+            return all(health.check_accelerator_health(d) for d in probed)
+
+        if not healthy():
             raise AccelFailure("accelerator health check failed")
         depth_fn = depth_map_generator.build_depth_fn(
             model_name, input_size, H, W, use_16bit, checkpoint,
-            device=device)
+            device=device, mesh=mesh)
+        # every dispatch shape: the full batch, divisible by the device
+        # count (the batch axis splits over the data mesh)
+        dispatch_n = pad_to_multiple(batch_size, device_count(device))
         print(f"Streaming {input_video.name}: {W}x{H} @ {framerate}, "
               f"{total} frames, resume from {done_upto}, "
               f"model={model_name}, batch={batch_size}, device={device}")
@@ -139,9 +151,9 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
 
         def compute_batch(rgb_np, n):
             def _run():
-                rgb = torch.from_numpy(np.array(rgb_np)).to(device)
+                rgb = shard_batch(np.array(rgb_np), device, mesh)
                 sbs = render_sbs(rgb, depth_fn, params)
-                return sbs[:n].cpu().numpy()
+                return gather(sbs)[:n].numpy()
             deadline = (DISPATCH_TIMEOUT if warmed[0]
                         else max(DISPATCH_TIMEOUT, DISPATCH_COLD_TIMEOUT))
             try:
@@ -158,11 +170,11 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
                 print("ERROR: cannot re-decode chunk boundary frame")
                 return False
             rgb = np.frombuffer(raw, np.uint8).reshape(1, H, W, 3)
-            carry_sbs = compute_batch(np.repeat(rgb, batch_size, axis=0), 1)
+            carry_sbs = compute_batch(np.repeat(rgb, dispatch_n, axis=0), 1)
 
         with trace("stream_convert"):
             while frame_no < total or total == 0:
-                if not health.check_accelerator_health(device):
+                if not healthy():
                     raise AccelFailure("accelerator health check failed")
                 batches_since_probe = 0
                 start_frame = frame_no if frame_no > 0 else 1
@@ -192,11 +204,11 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
                         n = len(raws)
                         rgb = np.frombuffer(b"".join(raws), np.uint8).reshape(
                             n, H, W, 3)
-                        if n < batch_size:  # a fixed dispatch shape
+                        if n < dispatch_n:  # a fixed dispatch shape
                             rgb = np.concatenate(
-                                [rgb, np.repeat(rgb[-1:], batch_size - n, 0)])
+                                [rgb, np.repeat(rgb[-1:], dispatch_n - n, 0)])
                         if batches_since_probe >= probe_every:
-                            if not health.check_accelerator_health(device):
+                            if not healthy():
                                 raise AccelFailure(
                                     "accelerator health check failed")
                             batches_since_probe = 0
