@@ -79,7 +79,23 @@ Drives the port's streaming main path on the card and checks it:
      float32-vs-bf16 difference of the same frames; (c) the dry run
      (``parallel/dryrun``) in-process and as two processes over gloo; (d)
      the time of (a) and (b) a batch beside the unsharded time, and the
-     memory each holds: the cost of sharding on one card, not a speed-up.
+     memory each holds: the cost of sharding on one card, not a speed-up;
+  8. the 4K main path, 2160 x 3840 at ``StereoParams()`` and the CLIs'
+     default batches (W' = 11847 is odd, so the pools run in torch glue and
+     the split route is refused, as in the JAX package): (a) each kernel of
+     the path against its plain version at batch 4, whose [4, 8, 6480,
+     11847] pair holds more than 2^31 elements, with times and bounds; (b)
+     ``generate_sbs`` on a batch of 4 equal, bit for bit, to its frames run
+     one at a time; (c) the card against the CPU plain path on a strip of
+     4K width (the plain path on a whole frame takes minutes on the host,
+     projected from the strip's time); (d) ``render_sbs`` with full-width
+     DepthPro on batches of 4: depth and SBS ms/frame, fps, launches a
+     batch by kernel, peak memory above the weights, one torch.profiler
+     pass; (e) the depth and SBS step CLIs' ``main(argv)`` at their default
+     batches (8 and 4) on 8 4K PNGs, their PNGs bit-equal to
+     ``build_depth_fn`` and ``generate_sbs``, frames/s and busy share, and
+     a 16-bit pass (``frame_extractor`` on a 4K clip only where the media
+     engine starts).
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -90,6 +106,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py --phases 1,5      # build + the step workflow
     python3 chip_smoke.py --phases 1,6      # build + the orchestrator
     python3 chip_smoke.py --phases 1,7      # build + parallel/
+    python3 chip_smoke.py --phases 1,8      # build + the 4K main path
 """
 
 from __future__ import annotations
@@ -305,7 +322,8 @@ def device_ms(fn, reps: int = 5) -> float:
     return sum(prof["per_kernel"].values()) / reps
 
 
-def log_profile(what: str, fn, group: str | None = None) -> dict:
+def log_profile(what: str, fn, group: str | None = None,
+                phase: int = 3) -> dict:
     """Device time of one call of fn() by kernel group, the top kernels,
     and with ``group`` (a GROUPS pattern) the top kernels of that group.
     Returns the device time by group (ms)."""
@@ -313,19 +331,19 @@ def log_profile(what: str, fn, group: str | None = None) -> dict:
     prof = profile_device(fn)
     per_kernel = sorted(prof["per_kernel"].items(), key=lambda kv: -kv[1])
     tot = sum(prof["groups"].values())
-    log(f"phase 3: profile of {what}: window "
+    log(f"phase {phase}: profile of {what}: window "
         f"{prof['window_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms "
         f"({100 * prof['busy_ms'] / prof['window_ms']:.1f} %, idle "
         f"{100 - 100 * prof['busy_ms'] / prof['window_ms']:.1f} %), "
         f"{prof['events']} device events")
-    log("phase 3: device time by group: " + "; ".join(
+    log(f"phase {phase}: device time by group: " + "; ".join(
         f"{g} {t:.2f} ms ({100 * t / tot:.1f} %)"
         for g, t in sorted(prof["groups"].items(), key=lambda kv: -kv[1])
         if t > 0))
-    log("phase 3: top kernels: " + "; ".join(
+    log(f"phase {phase}: top kernels: " + "; ".join(
         f"{t:.2f} ms {n[:70]}" for n, t in per_kernel[:8]))
     if group is not None:
-        log(f"phase 3: top kernels matching {group!r}: " + "; ".join(
+        log(f"phase {phase}: top kernels matching {group!r}: " + "; ".join(
             f"{t:.2f} ms {n[:70]}"
             for n, t in [kv for kv in per_kernel
                          if re.search(group, kv[0])][:6]))
@@ -416,12 +434,47 @@ def log_ptxas(path: Path) -> None:
         f"{spills.get(k, 0)} B spill" for k, v in sorted(regs.items())))
 
 
+def attention_check(N: int, g) -> dict:
+    """The qkv attention kernel against its plain version and SDPA on a
+    random qkv [N, 577, 3072] bf16 at 16 heads (DepthPro's ViT blocks: N is
+    36 a frame, 35 tiles and the image)."""
+    import torch
+    from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
+                                                  qkv_attention_plain)
+    qkv = torch.randn((N, 577, 3072), generator=g, device=g.device).to(
+        torch.bfloat16)
+    scale = 1.0 / 8.0
+    o = qkv_attention(qkv, 16, scale).float()
+    o_p = qkv_attention_plain(qkv, 16, scale).float()
+    err = float((o - o_p).abs().max())
+    mean_err = float((o - o_p).abs().mean())
+
+    def sdpa():
+        q, kk, v = (x.reshape(N, 577, 16, 64).transpose(1, 2)
+                    for x in qkv.split(1024, dim=-1))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kk, v, scale=scale)
+    check(err <= 8e-3 and mean_err <= 1e-5,
+          f"attention disagrees: max {err}, mean {mean_err}")
+    return dict(
+        max_abs_err=err, mean_abs_err=mean_err,
+        bound="max 8e-3, mean 1e-5: bf16 output (~0.07 in size) and "
+              "bf16-rounded p that can flip with the f32 summation order",
+        ms=time_ms(lambda: qkv_attention(qkv, 16, scale)),
+        plain_ms=time_ms(lambda: qkv_attention_plain(qkv, 16, scale),
+                         reps=2),
+        library_ms=time_ms(sdpa),
+        # qkv in, [N, T, D] out; two products on the tensor cores, ~5 f32
+        # operations per logit
+        **least_time(nbytes(qkv) + nbytes(qkv) // 3,
+                     bf16_tensor=4.0 * 577 * 577 * 64 * N * 16,
+                     f32=5.0 * 577 * 577 * N * 16))
+
+
 def phase_kernels(B: int):
     """Each kernel vs its plain version at the slice's shapes."""
     import torch
     from vsc_tpu_torch.ops import stereo
-    from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
-                                                  qkv_attention_plain)
     from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
                                              gaussian_blur_planes_plain)
     from vsc_tpu_torch.ops.inpaint import _pyramid_fill
@@ -487,34 +540,7 @@ def phase_kernels(B: int):
     check(err <= 1 and frac < 1e-3, f"postprocess disagrees: {err} {frac}")
 
     # 4. attention: qkv [35B + B, 577, 3072] bf16, 16 heads
-    N = 36 * B
-    qkv = torch.randn((N, 577, 3072), generator=g, device=dev).to(
-        torch.bfloat16)
-    scale = 1.0 / 8.0
-    o = qkv_attention(qkv, 16, scale).float()
-    o_p = qkv_attention_plain(qkv, 16, scale).float()
-    err = float((o - o_p).abs().max())
-    mean_err = float((o - o_p).abs().mean())
-
-    def sdpa():
-        q, kk, v = (x.reshape(N, 577, 16, 64).transpose(1, 2)
-                    for x in qkv.split(1024, dim=-1))
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, kk, v, scale=scale)
-    res["attention"] = dict(
-        max_abs_err=err, mean_abs_err=mean_err,
-        bound="max 8e-3, mean 1e-5: bf16 output (~0.07 in size) and "
-              "bf16-rounded p that can flip with the f32 summation order",
-        ms=time_ms(lambda: qkv_attention(qkv, 16, scale)),
-        plain_ms=time_ms(lambda: qkv_attention_plain(qkv, 16, scale),
-                         reps=2),
-        library_ms=time_ms(sdpa),
-        # two products on the tensor cores, ~5 f32 operations per logit
-        **least_time(nbytes(qkv) + nbytes(qkv) // 3,     # qkv in, [N, T, D] out
-                bf16_tensor=4.0 * 577 * 577 * 64 * N * 16,
-                f32=5.0 * 577 * 577 * N * 16))
-    check(err <= 8e-3 and mean_err <= 1e-5,
-          f"attention disagrees: max {err}, mean {mean_err}")
+    res["attention"] = attention_check(36 * B, g)
     for name, r in res.items():
         log(f"phase 2: {name}: max_abs_err {r['max_abs_err']:.3g} "
             f"[{r['bound']}], kernel {r['ms']:.3f} ms, plain "
@@ -524,13 +550,19 @@ def phase_kernels(B: int):
     return res
 
 
-def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
+# eye pixels the plain postprocess takes at once in phase_ss_kernels: the
+# 1080p pair's four eye-frames (3240 x 6090 each)
+PLAIN_PP_PIXELS = 4 * 3240 * 6090
+
+
+def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920, phase: int = 2):
     """Every SBS kernel of the super_sampling 3 branch (upsample, blur,
     planar-u8 warp, pools, pyramid, postprocess on the pair, finish, and
     the split route's bilateral where its guard takes the pair) vs its
-    plain version, at the shapes of H x W frames (1080p and 2160 x 3840 as
-    the check runs it), fed by the chain it sits in (each stage's kernel
-    output is the next stage's input)."""
+    plain version, at the shapes of B frames of H x W (1080p at batch 2 and
+    2160 x 3840 at batch 1 in phase 2, at batch 4 in phase 8), fed by the
+    chain it sits in (each stage's kernel output is the next stage's
+    input)."""
     import torch
     import torch.nn.functional as F
     from vsc_tpu_torch.ops import stereo
@@ -693,26 +725,37 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
               f"bilateral disagrees: {err} {frac} {e_rest}")
         del filt, quarter
     else:
-        log(f"phase 2: bilateral not checked at {H}x{W}: the split route's "
-            f"guard refuses the {UH} x {UW} pair (JAX's guard too)")
+        log(f"phase {phase}: bilateral not checked at {H}x{W}: the split "
+            f"route's guard refuses the {UH} x {UW} pair (JAX's guard too)")
 
     # finish on the postprocessed pair, each eye at its own offset
     smooth_q = stereo._pyramid_fill_planar_coarse(pair)
     pp_args = (pair, smooth_q, p.artifact_smoothing)
     out = postprocess_eye(*pp_args)
-    d = (out.int() - postprocess_eye_plain(*pp_args).int()).abs()
-    err, frac = float(d.max()), float((d > 0).float().mean())
+    # the plain version on at most PLAIN_PP_PIXELS eye pixels at a time (it
+    # works frame by frame and holds several f32 copies of what it is
+    # given: the whole 4K pair of 4 does not fit on the card beside them)
+    step = max(1, PLAIN_PP_PIXELS // (UH * UW))
+    chunks = [slice(i, i + step) for i in range(0, 2 * B, step)]
+
+    def pp_plain(c):
+        return postprocess_eye_plain(pair[:, c], smooth_q[:, c], sm)
+    err, n_diff = 0.0, 0
+    for c in chunks:
+        d = (out[:, c].int() - pp_plain(c).int()).abs()
+        err, n_diff = max(err, float(d.max())), n_diff + int((d > 0).sum())
+    frac = n_diff / out.numel()
     del d
     share = float(hole_tiles(pair[3]).float().mean())
     res["postprocess"] = dict(
         max_abs_err=err, frac_differing=frac, hole_tile_share=share,
         bound="<= 1 code on < 0.1% of pixels",
         ms=time_ms(lambda: postprocess_eye(*pp_args)),
-        plain_ms=time_ms(lambda: postprocess_eye_plain(*pp_args), reps=2),
+        plain_ms=time_ms(lambda: [pp_plain(c) for c in chunks], reps=2),
         # the bilateral on every pixel, the fill and polish on the holes
         **least_time(nbytes(pair, smooth_q, out),
                      f32=postprocess_ops(pair, sm)))
-    log(f"phase 2: postprocess ({H}x{W}, super_sampling 3): "
+    log(f"phase {phase}: postprocess ({H}x{W}, super_sampling 3): "
         f"{100 * share:.1f} % of its {TILE_H} x {TILE_W} tiles take the hole "
         f"path, {100 * float((pair[3] == 0).float().mean()):.2f} % of "
         f"pixels are holes")
@@ -735,12 +778,12 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920):
                              f32=26.0 * out[..., :crop_w].numel()),
                 **issue_floor(26.0 * out[..., :crop_w].numel()))
     check(err == 0, f"finish disagrees: {err}")
-    log(f"phase 2: {H}x{W} super_sampling 3 shapes: upsample "
+    log(f"phase {phase}: {H}x{W} super_sampling 3 shapes: upsample "
         f"{tuple(x_cf.shape)} and {tuple(depth.shape)} x{f}, pair "
         f"{tuple(out.shape[1:])}, pyramid {tuple(q.shape)}, finish crop "
         f"{crop_w} at ({lo}, {ro})")
     for name, r in res.items():
-        log(f"phase 2: {name} ({H}x{W}, super_sampling 3): max_abs_err "
+        log(f"phase {phase}: {name} ({H}x{W}, super_sampling 3): max_abs_err "
             f"{r['max_abs_err']:.3g}"
             + (f" on {r['frac_differing']:.2g} of pixels"
                if "frac_differing" in r else "")
@@ -989,7 +1032,7 @@ def small_sbs_check(params, dev, rgb=None, dsm=None, phase=3, what=""):
     128, 3] and ``dsm`` [B, 72, 128], u8 or u16), disparity and convergence
     scaled from 1920 to 128 columns."""
     import torch
-    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.ops.stereo import StereoParams
     if rgb is None:
         g = torch.Generator().manual_seed(3)
         rgb = (torch.rand((2, 72, 128, 3), generator=g) * 255).to(torch.uint8)
@@ -998,16 +1041,29 @@ def small_sbs_check(params, dev, rgb=None, dsm=None, phase=3, what=""):
     small = StereoParams(max_disparity=params.max_disparity * 128 / 1920,
                          convergence=params.convergence * 128 / 1920,
                          super_sampling=params.super_sampling)
-    ref = generate_sbs(rgb, dsm, small).int()
-    got = generate_sbs(rgb.to(dev), dsm.to(dev), small).cpu().int()
+    sbs_card_vs_cpu(rgb, dsm, small, dev,
+                    f"phase {phase}: small SBS{what} card vs CPU plain at "
+                    f"super_sampling {params.super_sampling:g}")
+
+
+def sbs_card_vs_cpu(rgb, dsm, params, dev, label: str) -> float:
+    """generate_sbs on the card against the CPU plain path on the CPU
+    tensors rgb and dsm, under the planar-u8 thresholds (mean diff < 0.05,
+    > 1 code on < 0.5 % of values, max <= 16). Returns the CPU path's
+    seconds."""
+    from vsc_tpu_torch.ops.stereo import generate_sbs
+    t0 = time.perf_counter()
+    ref = generate_sbs(rgb, dsm, params).int()
+    cpu_s = time.perf_counter() - t0
+    got = generate_sbs(rgb.to(dev), dsm.to(dev), params).cpu().int()
     diff = (got - ref).abs().float()
     mean, over1, top = (float(diff.mean()), float((diff > 1).float().mean()),
                         int(diff.max()))
-    log(f"phase {phase}: small SBS{what} card vs CPU plain at super_sampling "
-        f"{params.super_sampling:g}: mean diff {mean:.4f}, >1 code "
-        f"{over1:.5f}, max {top}")
+    log(f"{label}: mean diff {mean:.4f}, >1 code {over1:.5f}, max {top} "
+        f"(CPU plain path {cpu_s:.2f} s)")
     check(mean < 0.05 and over1 < 0.005 and top <= 16,
           "SBS on the card disagrees with the CPU plain path")
+    return cpu_s
 
 
 def phase_4k():
@@ -1032,34 +1088,50 @@ def phase_4k():
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# launch counter -> its checks in phase_ss_kernels
+SS_PARTS = {"upsample": ("upsample_u8", "upsample_f32"),
+            "pool": ("pool_eye4", "pool_f32"), "pyramid": ("pyramid",),
+            "finish": ("finish",), "warp": ("warp_planar_u8",),
+            "blur": ("blur",), "postprocess": ("postprocess",),
+            "bilateral": ("bilateral",)}
+
+
+def merge_ss(ss: dict) -> dict:
+    """One row per launch counter from phase_ss_kernels' checks: the
+    largest error over the counter's checks; a row of several checks
+    (upsample, pool) sums their times and bounds, and has a library time
+    only when every part has one. A counter whose checks did not run at
+    these shapes (the pools and the bilateral at an odd W') has no row."""
+    rows = {}
+    for name, keys in SS_PARTS.items():
+        if not all(k in ss for k in keys):
+            continue
+        rows[name] = {
+            "max_abs_err": max(ss[k]["max_abs_err"] for k in keys),
+            "ms": sum(ss[k]["ms"] for k in keys),
+            "plain_ms": sum(ss[k]["plain_ms"] for k in keys),
+            "bound_ms": sum(ss[k]["bound_ms"] for k in keys),
+            "bound_by": max((ss[k] for k in keys),
+                            key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": (sum(ss[k]["library_ms"] for k in keys)
+                           if all("library_ms" in ss[k] for k in keys)
+                           else None)}
+    return rows
+
+
 def merge_kernel_results(ss1: dict, ss3: dict, depth: dict) -> dict:
     """One row per launch counter for the kernels line: times at the main
     path's (super_sampling 3) shapes where the kernel has a check there
     (super_sampling 1 times kept beside them), the largest error over every
-    check of the kernel; a row of several checks (upsample, pool) sums
-    their times and bounds, and has a library time only when every part
-    has one."""
+    check of the kernel (merge_ss)."""
     rows = dict(ss1)
     rows.update(depth)
-    parts = {"upsample": ("upsample_u8", "upsample_f32"),
-             "pool": ("pool_eye4", "pool_f32"), "pyramid": ("pyramid",),
-             "finish": ("finish",), "warp": ("warp_planar_u8",),
-             "blur": ("blur",), "postprocess": ("postprocess",),
-             "bilateral": ("bilateral",)}
-    for name, keys in parts.items():
-        row = {"max_abs_err": max([ss3[k]["max_abs_err"] for k in keys]
-                                  + ([ss1[name]["max_abs_err"]]
-                                     if name in ss1 else [])),
-               "ms": sum(ss3[k]["ms"] for k in keys),
-               "plain_ms": sum(ss3[k]["plain_ms"] for k in keys),
-               "bound_ms": sum(ss3[k]["bound_ms"] for k in keys),
-               "bound_by": max((ss3[k] for k in keys),
-                               key=lambda r: r["bound_ms"])["bound_by"],
-               "library_ms": (sum(ss3[k]["library_ms"] for k in keys)
-                              if all("library_ms" in ss3[k] for k in keys)
-                              else None)}
+    for name, row in merge_ss(ss3).items():
         if name in ss1:
-            row.update(ss1_ms=ss1[name]["ms"], ss1_plain_ms=ss1[name]["plain_ms"])
+            row.update(max_abs_err=max(row["max_abs_err"],
+                                       ss1[name]["max_abs_err"]),
+                       ss1_ms=ss1[name]["ms"],
+                       ss1_plain_ms=ss1[name]["plain_ms"])
         rows[name] = row
     return rows
 
@@ -1497,6 +1569,68 @@ def step_busy_share(module, argv, what: str) -> str:
             + "; top: " + "; ".join(f"{t:.1f} ms {n[:60]}" for n, t in top))
 
 
+def depth_on_step_batches(fn, frames, batch: int, dev):
+    """fn on host frames [n, H, W, 3] in the depth step's own batches (the
+    last one padded with its last frame to ``batch``), as numpy."""
+    import numpy as np
+    import torch
+    n, want = len(frames), []
+    for i in range(0, n, batch):
+        b = frames[i:i + batch]
+        b = np.concatenate([b] + [b[-1:]] * (batch - len(b)))
+        want.append(fn(torch.from_numpy(b).to(dev))[:n - i].cpu().numpy())
+    return np.concatenate(want)
+
+
+def check_sbs_files(files, frames, depth, batch: int, dev) -> None:
+    """The SBS step's PNGs against generate_sbs on the host frames and
+    depth in the step's batches, bit for bit."""
+    import numpy as np
+    import torch
+    from vsc_tpu_torch.io.image import read_rgb
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    check(len(files) == len(frames), f"{len(files)} SBS files")
+    for i in range(0, len(frames), batch):
+        sl = slice(i, i + batch)
+        ref = generate_sbs(torch.from_numpy(frames[sl]).to(dev),
+                           torch.from_numpy(depth[sl]).to(dev),
+                           StereoParams()).cpu().numpy()
+        for f, w in zip(files[sl], ref):
+            check(np.array_equal(read_rgb(f), w),
+                  f"{f.name} differs from generate_sbs")
+
+
+def sixteen_bit_pass(path: Path, video: Path, frames, depth_argv, sbs_argv,
+                     dev, phase: int):
+    """The depth and SBS step CLIs on a new workflow with save_16bit: the
+    depth as uint16 TIFFs spanning 0..65535, the SBS PNGs equal to
+    generate_sbs on the frames and that depth, bit for bit. Returns the
+    depth read back."""
+    import numpy as np
+    from vsc_tpu_torch.config import load_config, save_config
+    from vsc_tpu_torch.io.image import read_depth
+    from vsc_tpu_torch.pipeline import depth_map_generator, sbs_generator
+    n = len(frames)
+    wf16 = new_workflow(path, video)
+    config = load_config(wf16)
+    config["depth"]["save_16bit"] = True
+    save_config(wf16, config)
+    write_frames(wf16, frames)
+    step_main(depth_map_generator, [str(wf16), *depth_argv],
+              "16-bit depth step")
+    tifs = sorted((wf16 / "depth_maps").glob("depth_frame_*.tif"))
+    d16 = np.stack([read_depth(f) for f in tifs])
+    check(len(tifs) == n and d16.dtype == np.uint16
+          and all(int(d.min()) == 0 and int(d.max()) == 65535 for d in d16),
+          f"16-bit depth: {len(tifs)} files, {d16.dtype}")
+    step_main(sbs_generator, [str(wf16), *sbs_argv], "16-bit SBS step")
+    check_sbs_files(sorted((wf16 / "sbs").glob("sbs_*.png")), frames, d16,
+                    n, dev)
+    log(f"phase {phase}: 16-bit pass: {n} uint16 TIFFs (0..65535 each), SBS "
+        "PNGs equal generate_sbs on them bit for bit")
+    return d16
+
+
 def phase_steps(card: str) -> dict:
     """Phase 5: the step workflow through its mains at 1080p. Returns the
     launches of the counted depth and SBS steps by kernel."""
@@ -1504,10 +1638,10 @@ def phase_steps(card: str) -> dict:
 
     import numpy as np
     import torch
-    from vsc_tpu_torch.config import load_config, save_config
+    from vsc_tpu_torch.config import load_config
     from vsc_tpu_torch.io.image import read_depth, read_rgb
     from vsc_tpu_torch.ops import _cuda
-    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.ops.stereo import StereoParams
     from vsc_tpu_torch.pipeline import (depth_map_generator, sbs_generator,
                                         sbs_tester)
     dev = torch.device("cuda")
@@ -1554,12 +1688,7 @@ def phase_steps(card: str) -> dict:
         check(np.array_equal(read, frames), "frames read back differ")
         fn = depth_map_generator.build_depth_fn(
             "depthpro", 1536, 1080, 1920, False, device=dev, seed=0)
-        want = []
-        for i in range(0, n, STEP_DEPTH_BATCH):
-            b = read[i:i + STEP_DEPTH_BATCH]
-            b = np.concatenate([b] + [b[-1:]] * (STEP_DEPTH_BATCH - len(b)))
-            want.append(fn(torch.from_numpy(b).to(dev))[:n - i].cpu().numpy())
-        want = np.concatenate(want)
+        want = depth_on_step_batches(fn, read, STEP_DEPTH_BATCH, dev)
         del fn
         got = np.stack([read_depth(f) for f in depth_files])
         check(got.dtype == np.uint8 and np.array_equal(got, want),
@@ -1604,43 +1733,14 @@ def phase_steps(card: str) -> dict:
             f"frames/s around main, pipeline {clock.seconds[0]:.2f} s = "
             f"{n / clock.seconds[0]:.2f} frames/s ({clock.breakdown()}) on "
             f"{card}")
-        for i in range(0, n, STEP_SBS_BATCH):
-            sl = slice(i, i + STEP_SBS_BATCH)
-            ref = generate_sbs(torch.from_numpy(read[sl]).to(dev),
-                               torch.from_numpy(got[sl]).to(dev),
-                               StereoParams()).cpu().numpy()
-            for f, w in zip(sbs_files[sl], ref):
-                check(np.array_equal(read_rgb(f), w),
-                      f"{f.name} differs from generate_sbs")
+        check_sbs_files(sbs_files, read, got, STEP_SBS_BATCH, dev)
         log("phase 5: SBS PNGs equal generate_sbs on the frames and the "
             f"depth read back, bit for bit ({n} frames)")
 
         phase_steps_timing(wf, frames, sbs_argv, card)
 
-        # the 16-bit pass: uint16 TIFF depth on 4 frames
-        wf16 = new_workflow(tmp / "workflow16", video)
-        config = load_config(wf16)
-        config["depth"]["save_16bit"] = True
-        save_config(wf16, config)
-        write_frames(wf16, frames[:4])
-        step_main(depth_map_generator, [str(wf16), *depth_argv],
-                  "16-bit depth step")
-        tifs = sorted((wf16 / "depth_maps").glob("depth_frame_*.tif"))
-        d16 = np.stack([read_depth(f) for f in tifs])
-        check(len(tifs) == 4 and d16.dtype == np.uint16
-              and all(int(d.min()) == 0 and int(d.max()) == 65535
-                      for d in d16),
-              f"16-bit depth: {len(tifs)} files, {d16.dtype}")
-        step_main(sbs_generator, [str(wf16), *sbs_argv], "16-bit SBS step")
-        s16 = sorted((wf16 / "sbs").glob("sbs_*.png"))
-        ref = generate_sbs(torch.from_numpy(frames[:4]).to(dev),
-                           torch.from_numpy(d16).to(dev),
-                           StereoParams()).cpu().numpy()
-        check(len(s16) == 4 and all(np.array_equal(read_rgb(f), w)
-                                    for f, w in zip(s16, ref)),
-              "16-bit SBS PNGs differ from generate_sbs")
-        log("phase 5: 16-bit pass: 4 uint16 TIFFs (0..65535 each), SBS PNGs "
-            "equal generate_sbs on them bit for bit")
+        d16 = sixteen_bit_pass(tmp / "workflow16", video, frames[:4],
+                               depth_argv, sbs_argv, dev, 5)
         crop = (slice(None, 1), slice(400, 472), slice(800, 928))
         small_sbs_check(StereoParams(), dev,
                         torch.from_numpy(frames[crop].copy()),
@@ -1663,24 +1763,26 @@ def phase_steps(card: str) -> dict:
     return {k: l_depth[k] + l_sbs[k] for k in l_depth}
 
 
-def phase_steps_extract(tmp: Path) -> None:
-    """frame_extractor.main on a 12-frame clip, where the media engine
-    starts."""
+def phase_steps_extract(tmp: Path, width: int = 320, height: int = 180,
+                        phase: int = 5) -> None:
+    """frame_extractor.main on a 12-frame clip of width x height, where the
+    media engine starts."""
     from vsc_tpu_torch.native import vscmedia_path
     if vscmedia_path() is None:
-        log("phase 5: frame_extractor not run: the vscmedia media engine "
-            "(libav) does not start here")
+        log(f"phase {phase}: frame_extractor not run: the vscmedia media "
+            "engine (libav) does not start here")
         return
     from vsc_tpu_torch.io.media import make_test_video
     from vsc_tpu_torch.pipeline import frame_extractor
     video = tmp / "clip.mkv"
-    make_test_video(video, width=320, height=180, frames=12,
+    make_test_video(video, width=width, height=height, frames=12,
                     framerate="24/1", with_audio=False)
     wf = new_workflow(tmp / "extract", video)
     step_main(frame_extractor, [str(wf)], "frame_extractor")
     got = len(list((wf / "frames").glob("frame_*.png")))
     check(got == 12, f"frame_extractor wrote {got} frames")
-    log("phase 5: frame_extractor.main extracted 12 frames")
+    log(f"phase {phase}: frame_extractor.main extracted 12 {width} x "
+        f"{height} frames")
 
 
 def phase_steps_timing(wf: Path, frames, sbs_argv, card: str) -> None:
@@ -2317,9 +2419,236 @@ def phase_parallel(card: str) -> None:
         f" s: {ok[0]}")
 
 
+K4_H, K4_W = 2160, 3840
+K4_BATCH = 4            # phase 8: the SBS step's and streaming CLI's default
+K4_BATCHES = 2          # phase 8: timed render_sbs batches after a warm-up
+K4_STEP_FRAMES = 8      # phase 8: one depth batch of 8, two SBS batches of 4
+K4_STRIP = (120, 32)    # phase 8: the tier-1 strip's first row and rows
+# phase 8: launches of one 4K batch by kernel at the defaults: W' = 11847
+# is odd, so the pools take the torch glue and the split route is refused
+K4_LAUNCHES = {"attention": 48, "blur": 1, "upsample": 2, "warp": 1,
+               "pyramid": 1, "postprocess": 1, "finish": 1, "pool": 0,
+               "bilateral": 0, "deconv": 0, "attention_split": 0}
+
+
+def phase_4k_main(card: str) -> dict:
+    """Phase 8: the main path at 2160 x 3840 and the CLIs' default batches.
+    (a) each kernel of the 4K path against its plain version at the B = 4
+    shapes, (b) generate_sbs on a batch of 4 equal to the same frames at
+    B = 1 bit for bit, (c) the card against the CPU plain path, (d)
+    render_sbs with full-width DepthPro timed on batches of 4, (e) the step
+    CLIs on 4K PNGs. Returns each kernel's launches a render_sbs batch with
+    its row from (a) (merge_ss), and the launches of the timed run."""
+    import torch
+    from vsc_tpu_torch.ops.stereo import (StereoParams, generate_sbs,
+                                          sbs_shapes)
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    dev = torch.device("cuda")
+    H, W, B = K4_H, K4_W, K4_BATCH
+    params = StereoParams()
+    s = sbs_shapes(H, W, params)
+    UH, UW = s["up_h"], s["up_w"]
+    torch.cuda.empty_cache()
+
+    # (a) the kernels at the B = 4 shapes; the pair passes 2^31 elements
+    pair_n = 4 * 2 * B * UH * UW
+    masks = [3 * 2 * B * UH * UW + (B + i) * UH * UW for i in range(B)]
+    check(pair_n > 2 ** 31, f"the B = {B} pair holds {pair_n} elements")
+    log(f"phase 8: (a) the B = {B} pair [4, {2 * B}, {UH}, {UW}] u8 holds "
+        f"{pair_n:,} elements ({pair_n / 2 ** 31:.3f} x 2^31); its "
+        f"right-eye valid planes start at elements "
+        + ", ".join(f"{m:,}" for m in masks))
+    rows = merge_ss(phase_ss_kernels(B, H, W, phase=8))
+    torch.cuda.empty_cache()
+    # the depth model's attention at a batch of 4 (its shapes do not depend
+    # on the frame size)
+    att = rows["attention"] = attention_check(
+        36 * B, torch.Generator(dev).manual_seed(2))
+    log(f"phase 8: attention [{36 * B}, 577, 3072] bf16: max_abs_err "
+        f"{att['max_abs_err']:.3g} [{att['bound']}], kernel {att['ms']:.3f} "
+        f"ms, plain {att['plain_ms']:.3f} ms, sdpa {att['library_ms']:.3f} "
+        f"ms, bound {att['bound_ms']:.3f} ms ({att['bound_by']})")
+
+    # (b) batching changes no pixel
+    rgb = frames_u8(B, dev, 81, H, W)
+    depth = torch.stack([
+        (torch.roll(smooth_depth(1, H, W, dev, 82 + i)[0], 480 * i, dims=1)
+         * 255).to(torch.uint8) for i in range(B)])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = generate_sbs(rgb, depth, params)
+    torch.cuda.synchronize()
+    peak_sbs = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    check(tuple(batch.shape) == (B, H, 2 * W, 3)
+          and batch.dtype == torch.uint8, f"4K SBS {tuple(batch.shape)}")
+    order = list(range(B))[::-1]
+    for i in order:
+        one = generate_sbs(rgb[i:i + 1], depth[i:i + 1], params)
+        check(torch.equal(one, batch[i:i + 1]),
+              f"(b) frame {i} at B = 1 differs from the batch of {B}: "
+              f"{int((one != batch[i:i + 1]).sum())} values")
+    log(f"phase 8: (b) generate_sbs on a 4K batch of {B} (frames "
+        f"{list(range(B))}) equals the same frames at B = 1, run in the "
+        f"order {order}, bit for bit; the batch's peak device memory "
+        f"{peak_sbs:.2f} GiB above its inputs")
+    del batch
+
+    # (c) the card against the CPU plain path on the strip; the plain path
+    # on a whole frame would take minutes on the host (the projection)
+    y0, n_rows = K4_STRIP
+    cpu_s = sbs_card_vs_cpu(
+        rgb[:1, y0:y0 + n_rows].contiguous().cpu(),
+        depth[:1, y0:y0 + n_rows].contiguous().cpu(), params, dev,
+        f"phase 8: (c) the 4K-geometry strip [1, {n_rows}, {W}] (rows "
+        f"{y0}-{y0 + n_rows - 1} of frame 0) card vs CPU plain at the "
+        f"defaults")
+    log(f"phase 8: (c) the CPU plain path's {cpu_s:.2f} s on {n_rows} rows "
+        f"projects to {cpu_s * H / n_rows:.0f} s for a whole frame on this "
+        f"host")
+    del rgb, depth
+    torch.cuda.empty_cache()
+
+    # (d) render_sbs with full-width DepthPro on batches of 4
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    depth_fn = build_depth_fn("depthpro", 1536, H, W, False, device=dev,
+                              seed=0)
+    torch.cuda.synchronize()
+    weights = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    log(f"phase 8: (d) full-width DepthPro (seed 0, bf16) at out {H} x {W} "
+        f"built in {time.perf_counter() - t0:.1f} s, {weights:.3f} GiB")
+    frames = [frames_u8(B, dev, 90 + i, H, W) for i in range(1 + K4_BATCHES)]
+    render_sbs(frames[0], depth_fn, params)              # warm-up
+    torch.cuda.synchronize()
+    outs, batch_s, launches = drive(frames[1:], depth_fn, params)
+    per_batch = {k: v // K4_BATCHES for k, v in launches.items()}
+    log(f"phase 8: (d) launches over {K4_BATCHES} batches of {B}: "
+        f"{launches}; a batch: {per_batch}")
+    for o in outs:
+        check(tuple(o.shape) == (B, H, 2 * W, 3) and o.dtype == torch.uint8,
+              f"4K render_sbs {tuple(o.shape)} {o.dtype}")
+    check(launches == {k: n * K4_BATCHES for k, n in K4_LAUNCHES.items()},
+          f"4K launches {launches}, expected {K4_LAUNCHES} a batch")
+    d = depth_fn(frames[1])
+    check(tuple(d.shape) == (B, H, W) and d.dtype == torch.uint8
+          and all(int(x.max()) == 255 and int(x.min()) == 0 for x in d),
+          "4K depth is not a full-range u8 map a frame")
+    t_depth = time_ms(lambda: depth_fn(frames[1]), reps=2)
+    t_sbs = time_ms(lambda: generate_sbs(frames[1], d, params), reps=2)
+    peak = run_peak_gib(lambda: render_sbs(frames[1], depth_fn, params))
+    per_frame = sorted(1e3 * x / B for x in batch_s)
+    log(f"phase 8: (d) 4K at the defaults, batches of {B}: depth "
+        f"{t_depth / B:.1f} ms/frame, SBS {t_sbs / B:.1f} ms/frame (CUDA "
+        f"events), end to end {B * len(batch_s) / sum(batch_s):.3f} fps "
+        f"({B * len(batch_s)} frames, host clock; per batch "
+        f"{per_frame[0]:.1f} / {per_frame[-1]:.1f} ms/frame min / max); "
+        f"peak device memory {peak:.3f} GiB above the {weights:.3f} GiB of "
+        f"weights, on {card}")
+    log_profile(f"one 4K batch of {B}",
+                lambda: render_sbs(frames[-1], depth_fn, params), phase=8)
+    del frames, outs, d
+
+    # (e) the step CLIs at their default batches
+    phase_4k_steps(card, depth_fn)
+    del depth_fn
+    torch.cuda.empty_cache()
+    return {"kernels": {name: {"launches": n, **rows.get(name, {})}
+                        for name, n in per_batch.items()},
+            "launches": launches}
+
+
+def phase_4k_steps(card: str, depth_fn) -> None:
+    """Phase 8 (e): the depth and SBS step CLIs' main(argv) at their
+    default batches (depth 8, SBS 4) on 8 4K frames written as PNGs: the
+    depth PNGs equal depth_fn (full-width DepthPro, seed 0) on the step's
+    batches and the SBS PNGs generate_sbs on the frames and the depth read
+    back, bit for bit; each step's frames/s and, on a second run, its busy
+    share; then a 16-bit pass on 4 frames. frame_extractor runs on a 4K
+    clip where the media engine starts."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from vsc_tpu_torch.io.image import read_depth, read_rgb
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.pipeline import depth_map_generator, sbs_generator
+    dev = torch.device("cuda")
+    n = K4_STEP_FRAMES
+    nd, ns = depth_map_generator.DEFAULT_BATCH, sbs_generator.DEFAULT_BATCH
+    check((nd, ns) == (8, 4), f"the steps' default batches are {nd}, {ns}")
+    depth_argv = ["--model", "depthpro", "--no-interactive"]
+    sbs_argv = ["--no-interactive"]
+    frames = frames_u8(n, dev, 85, K4_H, K4_W).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        video = tmp / "input.mkv"    # workflow_init checks only is_file()
+        video.touch()
+        wf = new_workflow(tmp / "workflow", video)
+        t0 = time.perf_counter()
+        write_frames(wf, frames)
+        log(f"phase 8: (e) {n} {K4_H} x {K4_W} frames written as PNGs in "
+            f"{time.perf_counter() - t0:.2f} s")
+        phase_steps_extract(tmp, K4_W, K4_H, phase=8)
+
+        _cuda.reset_launches()
+        with pipeline_clock() as clock:
+            t_depth, _ = step_main(depth_map_generator,
+                                   [str(wf), *depth_argv], "4K depth step")
+        l_depth = dict(_cuda.LAUNCHES)
+        depth_files = sorted((wf / "depth_maps").glob("depth_frame_*.png"))
+        check(len(depth_files) == n, f"{len(depth_files)} 4K depth maps")
+        check(l_depth["attention"] == 48 * -(-n // nd),
+              f"4K depth step launches {l_depth}")
+        read = np.stack([read_rgb(f) for f in
+                         sorted((wf / "frames").glob("frame_*.png"))])
+        check(np.array_equal(read, frames), "4K frames read back differ")
+        want = depth_on_step_batches(depth_fn, read, nd, dev)
+        got = np.stack([read_depth(f) for f in depth_files])
+        check(got.dtype == np.uint8 and np.array_equal(got, want),
+              f"4K depth PNGs differ from build_depth_fn: "
+              f"{int((got != want).sum())} pixels")
+        log(f"phase 8: (e) depth step ({n} frames, batch {nd}): launches "
+            f"{l_depth}; wall {t_depth:.2f} s = {n / t_depth:.2f} frames/s "
+            f"around main, pipeline {clock.seconds[0]:.2f} s = "
+            f"{n / clock.seconds[0]:.2f} frames/s ({clock.breakdown()}); "
+            f"PNGs equal build_depth_fn bit for bit, on {card}")
+        shutil.rmtree(wf / "depth_maps")
+        log("phase 8: (e) depth step under torch.profiler: "
+            + step_busy_share(depth_map_generator, [str(wf), *depth_argv],
+                              "profiled 4K depth step") + f" on {card}")
+        check(np.array_equal(np.stack([read_depth(f) for f in depth_files]),
+                             want), "the profiled 4K depth run differs")
+
+        _cuda.reset_launches()
+        with pipeline_clock() as clock:
+            t_sbs, _ = step_main(sbs_generator, [str(wf), *sbs_argv],
+                                 "4K SBS step")
+        l_sbs = dict(_cuda.LAUNCHES)
+        check(all(l_sbs[k] == K4_LAUNCHES[k] * (n // ns)
+                  for k in SBS_STEP_KERNELS), f"4K SBS step launches {l_sbs}")
+        sbs_files = sorted((wf / "sbs").glob("sbs_*.png"))
+        check_sbs_files(sbs_files, read, got, ns, dev)
+        log(f"phase 8: (e) SBS step ({n} frames, batch {ns}, StereoParams() "
+            f"defaults): launches {l_sbs}; wall {t_sbs:.2f} s = "
+            f"{n / t_sbs:.2f} frames/s around main, pipeline "
+            f"{clock.seconds[0]:.2f} s = {n / clock.seconds[0]:.2f} frames/s "
+            f"({clock.breakdown()}); PNGs equal generate_sbs on the frames "
+            f"and the depth read back, bit for bit, on {card}")
+        shutil.rmtree(wf / "sbs")
+        write_frames(wf, frames)
+        log("phase 8: (e) SBS step under torch.profiler: "
+            + step_busy_share(sbs_generator, [str(wf), *sbs_argv],
+                              "profiled 4K SBS step") + f" on {card}")
+
+        sixteen_bit_pass(tmp / "workflow16", video, frames[:ns], depth_argv,
+                         sbs_argv, dev, 8)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -2357,7 +2686,9 @@ def main(argv=None) -> int:
         phase_orchestrator(card)
     if 7 in phases:
         phase_parallel(card)
-    for name, n in step.items():     # the step path's, where phase 3 ran not
+    k4 = phase_4k_main(card) if 8 in phases else {}
+    # where phase 3 ran not: the step path's, else the 4K path's
+    for name, n in {**k4.get("launches", {}), **step}.items():
         launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")
                   for m in sys.modules),
@@ -2369,7 +2700,8 @@ def main(argv=None) -> int:
          "step_launches": step.get(name, 0),
          **{k: kern.get(name, {}).get(k)
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                      "bound_by", "library_ms")}}
+                      "bound_by", "library_ms")},
+         "at_4k": k4.get("kernels", {}).get(name)}
         for name, route, src, rep in KERNELS]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -32,6 +32,9 @@ from pathlib import Path  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA card (skips without one)")
+    config.addinivalue_line(
+        "markers", "slow: minutes of CPU and GBs of memory; tier-1 runs "
+        "-m 'not slow'")
 
 
 def pytest_sessionstart(session):

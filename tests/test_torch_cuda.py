@@ -580,6 +580,36 @@ def test_sbs_on_card_matches_cpu_plain(dev, super_sampling):
     assert float(diff.mean()) < 0.05 and int(diff.max()) <= 16
 
 
+def test_sbs_4k_batch_of_4_equals_its_frames_one_at_a_time(dev):
+    """2160 x 3840 at StereoParams() and the CLIs' batch of 4: the [4, 8,
+    6480, 11847] u8 pair holds 2,456,593,920 elements, so the right eyes'
+    valid planes lie past element 2^31. Each frame of the batch must equal
+    that frame converted alone; every SBS kernel of the 4K path launches
+    once a call."""
+    B, H, W = 4, 2160, 3840
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    base = 0.5 + 0.4 * torch.sin(xx / 97.0) * torch.cos(yy / 53.0)
+    rgb = torch.stack([torch.stack([base, 1.0 - base, 0.3 + 0.5 * base], -1)
+                       .roll(700 * i, dims=1) for i in range(B)])
+    rgb = ((rgb + 0.05 * _rand((B, H, W, 3), 7, dev)).clamp(0, 1)
+           * 255).to(torch.uint8)
+    near = 0.5 + 0.45 * torch.sin(xx / 311.0 + yy / 173.0)
+    depth = torch.stack([(near.roll(-900 * i, dims=1) * 255).to(torch.uint8)
+                         for i in range(B)])
+    kernels = ("blur", "warp", "postprocess", "upsample", "pyramid",
+               "finish")
+    before = dict(_cuda.LAUNCHES)
+    batch = generate_sbs(rgb, depth, StereoParams())
+    assert {k: _cuda.LAUNCHES[k] - before[k] for k in kernels} == {
+        "blur": 1, "warp": 1, "postprocess": 1, "upsample": 2, "pyramid": 1,
+        "finish": 1}
+    assert batch.shape == (B, H, 2 * W, 3)
+    for i in reversed(range(B)):
+        assert torch.equal(generate_sbs(rgb[i:i + 1], depth[i:i + 1],
+                                        StereoParams()), batch[i:i + 1]), i
+
+
 def _bilateral_check(eye4, smoothing, pool=True):
     """One counted launch; the filtered colors within 1 code of the plain
     version on < 0.1 % of pixels; the valid plane and the quarter exact."""
