@@ -95,7 +95,21 @@ Drives the port's streaming main path on the card and checks it:
      batches (8 and 4) on 8 4K PNGs, their PNGs bit-equal to
      ``build_depth_fn`` and ``generate_sbs``, frames/s and busy share, and
      a 16-bit pass (``frame_extractor`` on a 4K clip only where the media
-     engine starts).
+     engine starts);
+  9. the FOV head: the JAX package's default DepthPro (``DepthProConfig()``,
+     a third ViT-L on the quarter-size image, ``fov_deg`` and the metric
+     ``inverse_depth``) at full width on 1080p batches of 2 through
+     ``build_depth_fn``'s resize and ``preprocess_frames``: (a) bf16,
+     ``fov_deg`` finite, the canonical depth equal to the head-off model's
+     on the same weights, ``fov_deg`` and ``inverse_depth`` on the kernels
+     against the plain attention within the plain path's own
+     bf16-vs-float32 difference, 72 qkv launches a batch (48 without the
+     head; counters and torch.profiler), depth ms/frame with and without
+     the head, weights and peak memory; (b) float32, 72 split-kernel
+     launches, ``fov_deg`` within 1e-3 degrees of the plain path; (c) TP 2
+     + ``seq_shard`` with the head on a (1 x 2) mesh naming cuda:0 twice,
+     ``fov_deg`` and the u8 depth within the unsharded bf16-vs-float32
+     difference.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -107,6 +121,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py --phases 1,6      # build + the orchestrator
     python3 chip_smoke.py --phases 1,7      # build + parallel/
     python3 chip_smoke.py --phases 1,8      # build + the 4K main path
+    python3 chip_smoke.py --phases 1,9      # build + the FOV head
 """
 
 from __future__ import annotations
@@ -301,13 +316,15 @@ def profile_device(fn, window: str = "chip_smoke_window"):
             end = b
     groups = {name: 0.0 for name, _ in GROUPS}
     groups["other"] = 0.0
-    per_kernel = {}
+    per_kernel, per_kernel_n = {}, {}
     for a, b, name in dev:
         g = next((gn for gn, pat in GROUPS if re.search(pat, name)), "other")
         groups[g] += max(b - a, 0.0) / 1e3
         per_kernel[name] = per_kernel.get(name, 0.0) + max(b - a, 0.0) / 1e3
+        per_kernel_n[name] = per_kernel_n.get(name, 0) + 1
     return dict(window_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3,
-                events=len(dev), groups=groups, per_kernel=per_kernel)
+                events=len(dev), groups=groups, per_kernel=per_kernel,
+                per_kernel_n=per_kernel_n)
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -2326,7 +2343,8 @@ def phase_parallel(card: str) -> None:
     # (b) tensor + sequence parallel: a (1 data x 2 model) mesh
     mesh_tp = make_mesh(1, 2, devices=[dev, dev])
     cfg_tp = DepthProConfig(img_size=1536, tile_size=384,
-                            encoder=ViTConfig(img_size=384, seq_shard=True))
+                            encoder=ViTConfig(img_size=384, seq_shard=True),
+                            use_fov_head=False)
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
     fn_tp = build_depth_fn("depthpro", 1536, 1080, 1920, False, seed=0,
@@ -2646,9 +2664,221 @@ def phase_4k_steps(card: str, depth_fn) -> None:
                          sbs_argv, dev, 8)
 
 
+FOV_BATCH = 2           # phase 9: frames a batch, as phase 3's
+FOV_QKV = 72            # phase 9: qkv launches a batch, 24 blocks x 3 ViTs
+FOV_F32_ATOL = 1e-3     # phase 9 (b): degrees, the JAX tests' bound vs HF
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The ViTs on the plain attention (``qkv_attention_plain``,
+    ``short_seq_attention_plain``) inside the with-block: the yardstick a
+    kernel route is held against here, never a route of the program."""
+    from vsc_tpu_torch.models import vit
+    from vsc_tpu_torch.ops import attention_cuda
+    saved = vit.qkv_attention, vit.short_seq_attention
+    vit.qkv_attention = attention_cuda.qkv_attention_plain
+    vit.short_seq_attention = attention_cuda.short_seq_attention_plain
+    try:
+        yield
+    finally:
+        vit.qkv_attention, vit.short_seq_attention = saved
+
+
+def depth_input(frames):
+    """``build_depth_fn``'s head: u8 frames -> the resize to 1536 ->
+    ``preprocess_frames``."""
+    import torch
+    from vsc_tpu_torch.models.depthpro import preprocess_frames
+    from vsc_tpu_torch.ops.resize import resize
+    x = resize(frames.to(torch.float32), 1536, 1536, "bilinear",
+               channel_last=True)
+    return preprocess_frames(x)
+
+
+def quantize_depth(canonical, H: int = 1080, W: int = 1920):
+    """``build_depth_fn``'s tail: the resize back, the min-max to u8."""
+    import torch
+    from vsc_tpu_torch.ops.resize import resize
+    d = resize(canonical, H, W, "bilinear")
+    lo = d.amin(dim=(1, 2), keepdim=True)
+    hi = d.amax(dim=(1, 2), keepdim=True)
+    return torch.round((d - lo) / torch.clamp(hi - lo, min=1e-12)
+                       * 255.0).to(torch.uint8)
+
+
+def max_diff(a: dict, b: dict, key: str) -> float:
+    return float((a[key] - b[key]).abs().max())
+
+
+def phase_fov(card: str) -> dict:
+    """Phase 9: the JAX package's default DepthPro, the FOV head on (a
+    third ViT-L on the quarter-size image), at full width on 1080p batches
+    of 2 through the resize and ``preprocess_frames`` of build_depth_fn.
+    (a) bf16: fov_deg finite, the canonical depth equal to the head-off
+    model's on the same weights, fov_deg and inverse_depth on the kernels
+    against the plain attention within the plain path's own bf16-vs-float32
+    difference, 72 qkv launches a batch (48 without the head; counters
+    and torch.profiler), ms/frame with and without the head, weights and
+    peak memory; (b) float32: 72 split-kernel launches, fov_deg within
+    1e-3 degrees of the plain path; (c) TP 2 + seq_shard on a (1 x 2)
+    mesh naming cuda:0 twice, the head on: fov_deg and the u8 depth within
+    the unsharded bf16-vs-float32 difference. Returns the launches of the
+    head's path by kernel (bf16 route; float32 for the split kernel)."""
+    import re
+    import torch
+    from vsc_tpu_torch.models import DepthProConfig, ViTConfig
+    from vsc_tpu_torch.models.vit import Block
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.parallel.mesh import make_mesh
+    from vsc_tpu_torch.parallel.sharding import shard_params
+    from vsc_tpu_torch.pipeline.depth_map_generator import build_depthpro
+    dev = torch.device("cuda")
+    B = FOV_BATCH
+    torch.cuda.empty_cache()
+    frames = frames_u8(B, dev, 90)
+    x = depth_input(frames)
+    cfg = DepthProConfig()
+    check(cfg.use_fov_head and cfg.use_fov_encoder,
+          f"DepthProConfig() has the head off: {cfg}")
+
+    def built(**kw):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = build_depthpro(1536, dev, seed=0, **kw)
+        torch.cuda.synchronize()
+        return (m, (torch.cuda.memory_allocated() - held) / 2 ** 30,
+                time.perf_counter() - t0)
+
+    def fwd(m, inp=None):
+        with torch.inference_mode():
+            return m(x if inp is None else inp)
+
+    def counted(m):
+        _cuda.reset_launches()
+        out = fwd(m)
+        torch.cuda.synchronize()
+        return out, dict(_cuda.LAUNCHES)
+
+    def qkv_events(m):
+        n = profile_device(lambda: fwd(m))["per_kernel_n"]
+        return sum(c for k, c in n.items()
+                   if re.search(r"qkv_attention_kernel", k))
+
+    on, w_on, t_on = built(cfg=cfg)
+    off, w_off, _ = built()                 # the pipeline's: head off
+    check(hasattr(on, "fov") and not hasattr(off, "fov"),
+          "the head-on / head-off models")
+    sd_on = on.state_dict()
+    check(all(torch.equal(v, sd_on[k]) for k, v in off.state_dict().items()),
+          "the head-off model's seed-0 weights differ from the head-on's")
+    log(f"phase 9: full-width DepthPro with the FOV head (seed 0, bf16) "
+        f"built in {t_on:.1f} s; weights {w_on:.3f} GiB with the head, "
+        f"{w_off:.3f} GiB without (the same seed-0 tensors, equal)")
+
+    # (a) the default bf16 route
+    fwd(on), fwd(off)                                   # warm-up
+    out, l_on = counted(on)
+    ref, l_off = counted(off)
+    ref2 = fwd(off)
+    fov = out["fov_deg"]
+    check(tuple(fov.shape) == (B,) and fov.dtype == torch.float32
+          and bool(torch.isfinite(fov).all()), f"fov_deg {fov}")
+    can_self = max_diff(ref, ref2, "canonical_inverse_depth")
+    can_head = max_diff(out, ref, "canonical_inverse_depth")
+    log(f"phase 9: (a) fov_deg {[round(float(v), 4) for v in fov]}; "
+        f"canonical depth with the head vs without: max diff {can_head:.3g} "
+        f"(two head-off runs: {can_self:.3g})")
+    check(can_head <= can_self, "the FOV head changed the canonical depth")
+    check(torch.equal(out["inverse_depth"], out["canonical_inverse_depth"]
+                      * (2.0 * torch.tan(torch.deg2rad(fov) / 2.0))[:, None,
+                                                                    None]),
+          "inverse_depth is not canonical * 2 tan(fov / 2)")
+    p_on, p_off = qkv_events(on), qkv_events(off)
+    log(f"phase 9: (a) launches of one {B}-frame batch with the head "
+        f"{l_on}, without {l_off}; qkv kernel events (torch.profiler) "
+        f"{p_on} / {p_off}")
+    check(l_on["attention"] == p_on == FOV_QKV
+          and l_off["attention"] == p_off == 48
+          and l_on["attention_split"] == 0, "(a) qkv launches")
+    with plain_attention():
+        plain = fwd(on)
+    with env_set("VSC_TPU_DEPTH_DTYPE", "float32"):
+        on32, w32, _ = built(cfg=cfg)
+    with plain_attention():
+        plain32 = fwd(on32)
+    dk = {k: max_diff(out, plain, k) for k in ("fov_deg", "inverse_depth")}
+    dp = {k: max_diff(plain, plain32, k) for k in dk}
+    log("phase 9: (a) kernels vs plain attention (bf16) / plain bf16 vs "
+        "plain float32, max abs: " + "; ".join(
+            f"{k} {dk[k]:.4g} / {dp[k]:.4g}" for k in dk))
+    check(all(dk[k] <= dp[k] for k in dk),
+          "(a) the kernel route differs from the plain attention by more "
+          "than bf16 from float32")
+    t_with = time_ms(lambda: quantize_depth(fwd(on, depth_input(frames))[
+        "canonical_inverse_depth"]), reps=3)
+    t_without = time_ms(lambda: quantize_depth(fwd(off, depth_input(frames))[
+        "canonical_inverse_depth"]), reps=3)
+    peak_on = run_peak_gib(lambda: fwd(on))
+    peak_off = run_peak_gib(lambda: fwd(off))
+    log(f"phase 9: (a) depth (frames -> u8, build_depth_fn's work) "
+        f"{t_with / B:.2f} ms/frame with the head, {t_without / B:.2f} "
+        f"without (+{(t_with - t_without) / B:.2f}, "
+        f"{100 * (t_with / t_without - 1):.1f} %); weights {w_on:.3f} / "
+        f"{w_off:.3f} GiB; a batch's peak above them {peak_on:.3f} / "
+        f"{peak_off:.3f} GiB; on {card}")
+    log_profile(f"one {B}-frame batch with the FOV head", lambda: fwd(on),
+                phase=9)
+    del off
+
+    # (b) float32: the split-q/k/v kernel
+    fwd(on32)
+    out32, l32 = counted(on32)
+    d32 = max_diff(out32, plain32, "fov_deg")
+    log(f"phase 9: (b) float32 ({w32:.3f} GiB): launches of one batch "
+        f"{l32}; split attention by route {_cuda.ROUTE_LAUNCHES}; fov_deg "
+        f"kernel vs plain max diff {d32:.3g} (bound {FOV_F32_ATOL}); "
+        f"inverse_depth {max_diff(out32, plain32, 'inverse_depth'):.3g}")
+    check(l32["attention_split"] == FOV_QKV and l32["attention"] == 0,
+          "(b) split attention launches")
+    check(d32 <= FOV_F32_ATOL, "(b) float32 fov_deg vs the plain path")
+    del on32, plain, plain32
+
+    # (c) TP 2 + seq_shard with the head on
+    mesh = make_mesh(1, 2, devices=[dev, dev])
+    tp_model, _, _ = built(cfg=DepthProConfig(
+        encoder=ViTConfig(seq_shard=True)))
+    rep = shard_params(tp_model, mesh)[0]
+    del tp_model
+    ranked = [n for n, m in rep.named_modules()
+              if isinstance(m, Block) and m.ranks is not None]
+    check(len(ranked) == 72 and sum(n.startswith("fov.") for n in ranked)
+          == 24, f"(c) {len(ranked)} blocks with ranks")
+    fwd(rep)                                              # warm-up
+    tp, l_tp = counted(rep)
+    d_tp = max_diff(tp, out, "fov_deg")
+    d_fp = max_diff(out32, out, "fov_deg")
+    q = quantize_depth(out["canonical_inverse_depth"])
+    m_tp, t_tp = depth_diff(quantize_depth(tp["canonical_inverse_depth"]), q)
+    m32, t32 = depth_diff(quantize_depth(out32["canonical_inverse_depth"]), q)
+    log(f"phase 9: (c) TP 2 + seq_shard: launches of one batch {l_tp}; "
+        f"fov_deg vs unsharded bf16 max diff {d_tp:.4g} (float32 vs bf16: "
+        f"{d_fp:.4g}); u8 depth mean {m_tp:.4f}, max {t_tp} codes (float32 "
+        f"vs bf16: {m32:.4f}, {t32})")
+    check(l_tp["attention"] == 2 * FOV_QKV, "(c) qkv launches")
+    check(d_tp <= d_fp and m_tp <= m32 and t_tp <= t32,
+          "(c) the sharded model differs from the unsharded by more than "
+          "float32 from bf16")
+    del rep, on
+    torch.cuda.empty_cache()
+    return {"attention": l_on["attention"],
+            "attention_split": l32["attention_split"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -2687,8 +2917,10 @@ def main(argv=None) -> int:
     if 7 in phases:
         phase_parallel(card)
     k4 = phase_4k_main(card) if 8 in phases else {}
-    # where phase 3 ran not: the step path's, else the 4K path's
-    for name, n in {**k4.get("launches", {}), **step}.items():
+    fov = phase_fov(card) if 9 in phases else {}
+    # where phase 3 ran not: the step path's, else the 4K path's, else the
+    # FOV head's
+    for name, n in {**fov, **k4.get("launches", {}), **step}.items():
         launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")
                   for m in sys.modules),
@@ -2701,7 +2933,8 @@ def main(argv=None) -> int:
          **{k: kern.get(name, {}).get(k)
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")},
-         "at_4k": k4.get("kernels", {}).get(name)}
+         "at_4k": k4.get("kernels", {}).get(name),
+         "fov_launches": fov.get(name, 0)}
         for name, route, src, rep in KERNELS]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -41,7 +41,7 @@ PORT_TINY = DepthProConfig(
                       layerscale_init=TINY.encoder.layerscale_init),
     hook_block_ids=TINY.hook_block_ids,
     decoder_features=TINY.decoder_features,
-    dims_encoder=TINY.dims_encoder)
+    dims_encoder=TINY.dims_encoder, use_fov_head=False)
 JAX_TINY_NO_FOV = JCfg(img_size=TINY.img_size, tile_size=TINY.tile_size,
                        encoder=TINY.encoder,
                        hook_block_ids=TINY.hook_block_ids,

@@ -1045,7 +1045,8 @@ def test_depth_step_on_card_equals_build_depth_fn(dev, tmp_path, monkeypatch,
         encoder=ViTConfig(img_size=32, patch_size=4, embed_dim=128, depth=4,
                           num_heads=2),
         img_size=128, tile_size=32, hook_block_ids=(0, 2),
-        decoder_features=16, dims_encoder=(16, 24, 32, 32))
+        decoder_features=16, dims_encoder=(16, 24, 32, 32),
+        use_fov_head=False)
     monkeypatch.setattr(bootstrap, "resolve_checkpoint", lambda: None)
     monkeypatch.setattr(step, "build_depth_fn", functools.partial(
         step.build_depth_fn, model_cfg=cfg))
@@ -1098,3 +1099,70 @@ def test_sbs_step_on_card_equals_generate_sbs(dev, tmp_path, depth_dtype):
     got = np.stack([read_rgb(wf / "sbs" / f"sbs_{i:06d}.png")
                     for i in range(1, 6)])
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fov_head_kernel_route_equals_plain(dev, monkeypatch, dtype):
+    """A small DepthPro with the FOV head (head dim 64) on the card: each
+    attention of its three ViTs, the FOV encoder's included, launches the
+    kernel of its route (the qkv kernel in bf16, the split kernel in
+    float32), and its outputs agree with the same model on the plain
+    attention: in float32 fov_deg within 1e-3 degrees and the depth maps
+    within test_torch_checkpoints.BOUND; in bf16 the kernel route is as
+    close to the float32 model as the plain route is, give or take one
+    bf16 rounding of the output (the head rounds its ~50 degrees to bf16's
+    grid of 0.25 there)."""
+    import copy
+    from vsc_tpu_torch.models import (DepthPro, DepthProConfig, ViTConfig,
+                                      init_flax_like, vit)
+    from vsc_tpu_torch.ops.attention_cuda import short_seq_attention_plain
+    cfg = DepthProConfig(
+        encoder=ViTConfig(img_size=32, patch_size=4, embed_dim=128, depth=2,
+                          num_heads=2),
+        img_size=128, tile_size=32, hook_block_ids=(0, 1),
+        decoder_features=16, dims_encoder=(16, 24, 32, 32))
+    with dev:
+        model = DepthPro(cfg).eval()
+    g = torch.Generator(dev).manual_seed(0)
+    init_flax_like(model, g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):      # make the attention show
+                p.uniform_(0.5, 1.5, generator=g)
+        model.fov.head[4].weight.mul_(50.0)  # a spread of degrees
+        model.fov.head[4].bias.add_(50.0)
+    x = _rand((4, 128, 128, 3), 7, dev) * 2 - 1
+
+    def run(m, plain=False):
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(vit, "qkv_attention", qkv_attention_plain)
+                mp.setattr(vit, "short_seq_attention",
+                           short_seq_attention_plain)
+            with torch.no_grad():
+                return m(x)
+
+    f32 = run(model, plain=True)
+    m = copy.deepcopy(model).to(dtype)
+    _cuda.reset_launches()
+    got = run(m)
+    torch.cuda.synchronize()
+    route = "attention" if dtype == torch.bfloat16 else "attention_split"
+    assert _cuda.LAUNCHES[route] == 3 * cfg.encoder.depth, _cuda.LAUNCHES
+    want = run(m, plain=True)
+    assert bool(torch.isfinite(got["fov_deg"]).all())
+    assert float(f32["fov_deg"].max() - f32["fov_deg"].min()) > 1.0
+    if dtype == torch.float32:
+        torch.testing.assert_close(got["fov_deg"], want["fov_deg"],
+                                   atol=1e-3, rtol=0)
+        for k in ("canonical_inverse_depth", "inverse_depth"):
+            torch.testing.assert_close(got[k], want[k], atol=5e-3,
+                                       rtol=1e-3)
+        return
+    for k in ("fov_deg", "inverse_depth"):
+        top = float(f32[k].abs().max())
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(top))
+        kernel = float((got[k] - f32[k]).abs().max())
+        plain = float((want[k] - f32[k]).abs().max())
+        assert kernel <= plain + ulp, (k, kernel, plain, ulp)

@@ -191,7 +191,8 @@ def test_depthpro_deconv_sites_read_channels_last(monkeypatch):
                                            embed_dim=128, depth=2,
                                            num_heads=2),
                          hook_block_ids=(0, 1), decoder_features=128,
-                         dims_encoder=(128, 128, 128, 128))
+                         dims_encoder=(128, 128, 128, 128),
+                         use_fov_head=False)
     model = DepthPro(cfg).eval()
     seen = []
     cl = torch.channels_last
@@ -322,7 +323,8 @@ def test_depthpro_head_dim_16_matches_jax():
     jparams = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(params),
         [jnp.asarray(flat[k]) for k in _flatten(params)])
-    tmodel = DepthPro(DepthProConfig(encoder=ViTConfig(**enc), **small))
+    tmodel = DepthPro(DepthProConfig(encoder=ViTConfig(**enc),
+                                     use_fov_head=False, **small))
     tmodel.load_state_dict(state_dict_from_jax(flat, tmodel.eval()),
                            strict=True)
     assert attention_route(torch.float32, 16) == "split"
@@ -359,7 +361,7 @@ def test_build_depthpro_honours_the_dtype_env(monkeypatch):
                                            embed_dim=32, depth=1,
                                            num_heads=2),
                          hook_block_ids=(0, 0), decoder_features=16,
-                         dims_encoder=(16, 24, 32, 32))
+                         dims_encoder=(16, 24, 32, 32), use_fov_head=False)
     monkeypatch.setenv("VSC_TPU_DEPTH_DTYPE", "bfloat16")
     m = build_depthpro(64, "cpu", cfg=cfg)
     assert m.head[0].weight.dtype == torch.bfloat16

@@ -31,7 +31,8 @@ def jax_small():
 
 
 def torch_small():
-    return DepthProConfig(encoder=ViTConfig(**ENC), **SMALL)
+    return DepthProConfig(encoder=ViTConfig(**ENC), use_fov_head=False,
+                          **SMALL)
 
 
 @pytest.fixture(scope="module")

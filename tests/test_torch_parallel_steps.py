@@ -133,7 +133,7 @@ def test_depth_step_small_depthpro_on_two_shards(workflow, tmp_path,
                          decoder_features=16, dims_encoder=(16, 24, 32, 32),
                          encoder=ViTConfig(img_size=32, patch_size=4,
                                            embed_dim=128, depth=4,
-                                           num_heads=2))
+                                           num_heads=2), use_fov_head=False)
     tmodel = DepthPro(cfg)
     init_flax_like(tmodel, torch.Generator().manual_seed(0))
     npz = tmp_path / "small.npz"

@@ -77,7 +77,8 @@ def test_render_sbs_matches_jax_kernel_path(tmp_path, monkeypatch,
 
     depth_fn = build_depth_fn(
         "depthpro", 128, H, W, False, str(npz), device="cpu",
-        model_cfg=DepthProConfig(encoder=ViTConfig(**ENC), **SMALL))
+        model_cfg=DepthProConfig(encoder=ViTConfig(**ENC), use_fov_head=False,
+                                 **SMALL))
     got_depth = depth_fn(torch.from_numpy(frames)).numpy()
     got = render_sbs(torch.from_numpy(frames), depth_fn, sbs_params).numpy()
 

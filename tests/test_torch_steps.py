@@ -171,7 +171,8 @@ def test_depth_step_small_depthpro_within_one_code_of_jax(
                num_heads=2)
     small = dict(img_size=128, tile_size=32, hook_block_ids=(0, 2),
                  decoder_features=16, dims_encoder=(16, 24, 32, 32))
-    cfg = DepthProConfig(encoder=ViTConfig(**enc), **small)
+    cfg = DepthProConfig(encoder=ViTConfig(**enc), use_fov_head=False,
+                         **small)
     tmodel = DepthPro(cfg)
     init_flax_like(tmodel, torch.Generator().manual_seed(0))
     npz = tmp_path / "small.npz"

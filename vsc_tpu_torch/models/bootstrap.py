@@ -77,8 +77,10 @@ def maybe_cache_npz(source_path, model) -> None:
     """After converting a checkpoint that the hub download brought (a path
     in huggingface_hub's ``models--org--name`` layout; a user's own file is
     the user's to manage), write ``model``'s weights to the npz cache in the
-    JAX package's layout, atomically. A failed write is reported, never
-    fatal."""
+    JAX package's layout, atomically. The cache holds the tree the JAX
+    package's pipeline writes, the FOV head's leaves left out (both
+    pipelines build DepthPro without it, and load the cache strictly). A
+    failed write is reported, never fatal."""
     if os.sep + "models--" not in str(source_path):
         return
     from vsc_tpu_torch.models.convert import jax_flat_from_state_dict
@@ -87,8 +89,9 @@ def maybe_cache_npz(source_path, model) -> None:
     tmp = dest.with_name(dest.stem + ".tmp.npz")
     try:
         dest.parent.mkdir(parents=True, exist_ok=True)
-        np.savez_compressed(str(tmp), **jax_flat_from_state_dict(
-            model.state_dict(), model))
+        flat = jax_flat_from_state_dict(model.state_dict(), model)
+        np.savez_compressed(str(tmp), **{k: v for k, v in flat.items()
+                                         if not k.startswith("fov/")})
         os.replace(tmp, dest)
         print(f"Converted weights cached: {dest}")
     except OSError as e:

@@ -32,15 +32,23 @@ matching shapes, or ``ConversionError`` is raised.
 
 ``convert_torch_checkpoint`` reads 2 and 3 (``.safetensors`` by
 ``read_safetensors``, which needs no ``safetensors`` package; ``.pt`` and
-``.pth`` by ``torch.load(weights_only=True)``). Both files hold tensors the
-port's DepthPro has no use for, and the converters drop exactly those: the
-FOV head (``fov.*`` / ``fov_model.*``: the port builds DepthPro without it,
-as the JAX package does), the coarsest fusion block's first residual
-(``decoder.fusions.4.resnet1.*`` / ``fusion_stage.intermediate.0.
-residual_layer1.*``: that block has no skip input) and DINOv2's
-``mask_token`` (masked pretraining only). A position table trained at
-another tile grid is resized as the JAX package resizes it (Keys cubic,
-``jax.image.resize``).
+``.pth`` by ``torch.load(weights_only=True)``). The FOV head maps in all
+three formats: Apple's ``fov.encoder.0`` (timm's ViT), ``fov.encoder.1``
+(the Linear neck), ``fov.downsample.0`` and ``fov.head.{0,2,4}`` (without
+the FOV encoder ``fov.head.{0,2,4,6}``, the downsample conv first); HF's
+``fov_model.fov_encoder.model`` (DINOv2), ``.neck``, ``fov_model.conv`` and
+``fov_model.head.layers.{0,2,4}``; the JAX tree's ``fov/...``. Both files
+hold tensors a model may have no use for, and the converters drop exactly
+those: the FOV head's (``fov.*`` / ``fov_model.*``) when the model has no
+head, the FOV encoder's when it has the head without the encoder (as the
+JAX package's conversion leaves them unread), the coarsest fusion block's
+first residual (``decoder.fusions.4.resnet1.*`` / ``fusion_stage.
+intermediate.0.residual_layer1.*``: that block has no skip input) and
+DINOv2's ``mask_token`` (masked pretraining only). A model with the head
+refuses a file without its tensors and names them, as the JAX package's
+``convert_torch_checkpoint`` does. A position table trained at another
+tile grid is resized as the JAX package resizes it (Keys cubic,
+``jax.image.resize``), the FOV encoder's too.
 """
 
 from __future__ import annotations
@@ -128,14 +136,16 @@ def _vit_table(tp: str, jp: str, depth: int) -> dict:
 
 
 def _depthpro_table(cfg) -> dict:
-    """The port-side inverse of vsc_tpu.models.convert._apple_mapping (FOV
-    off) plus both ViTs."""
+    """The port-side inverse of vsc_tpu.models.convert._apple_mapping plus
+    every ViT."""
     m = {}
     depth = cfg.encoder.depth
-    m.update(_vit_table("encoder.patch_encoder.", "encoder/patch_encoder/",
-                        depth))
-    m.update(_vit_table("encoder.image_encoder.", "encoder/image_encoder/",
-                        depth))
+    vits = [("encoder.patch_encoder.", "encoder/patch_encoder/"),
+            ("encoder.image_encoder.", "encoder/image_encoder/")]
+    if cfg.use_fov_head and cfg.use_fov_encoder:
+        vits.append(("fov.encoder.0.", "fov/encoder_vit/"))
+    for tp, jp in vits:
+        m.update(_vit_table(tp, jp, depth))
 
     def conv(tk, jk, bias, kind="conv"):
         m[f"{tk}.weight"] = (f"{jk}/kernel", kind)
@@ -166,6 +176,16 @@ def _depthpro_table(cfg) -> dict:
     conv("head.1", "head_deconv", bias=True, kind="convT")
     conv("head.2", "head_conv2", bias=True)
     conv("head.4", "head_out", bias=True)
+    if cfg.use_fov_head:
+        jks = ["fov/downsample_conv", "fov/head_conv0", "fov/head_conv1",
+               "fov/head_out"]
+        if cfg.use_fov_encoder:
+            m["fov.encoder.1.weight"] = ("fov/encoder_linear/kernel",
+                                         "linear")
+            m["fov.encoder.1.bias"] = ("fov/encoder_linear/bias", "same")
+            conv("fov.downsample.0", jks.pop(0), bias=True)
+        for i, jk in enumerate(jks):
+            conv(f"fov.head.{2 * i}", jk, bias=True)
     return m
 
 
@@ -244,17 +264,28 @@ def load_jax_npz(path, model) -> None:
 # --------------------------------------------------------------------------
 # Apple's depth_pro.pt and HuggingFace's apple/DepthPro-hf
 
-# tensors of the files that the port's DepthPro has no use for
-_UNUSED = {
-    "apple": re.compile(r"^fov\.|^decoder\.fusions\.4\.resnet1\."
-                        r"|\.mask_token$"),
-    "hf": re.compile(r"^fov_model\.|^fusion_stage\.intermediate\.0\."
-                     r"residual_layer1\.|\.mask_token$"),
-}
+# tensors of the files that no port DepthPro uses, by format; then those of
+# the FOV head and those of its encoder, used only by a model that has them
+_UNUSED = {"apple": r"^decoder\.fusions\.4\.resnet1\.|\.mask_token$",
+           "hf": r"^fusion_stage\.intermediate\.0\.residual_layer1\."
+                 r"|\.mask_token$"}
+_FOV = {"apple": (r"^fov\.", r"^fov\.encoder\."),
+        "hf": (r"^fov_model\.", r"^fov_model\.fov_encoder\.")}
+
+
+def _unused(fmt: str, cfg):
+    """The pattern of the tensors of a ``fmt`` file that a model of
+    ``cfg`` has no use for."""
+    head, encoder = _FOV[fmt]
+    extra = ("" if cfg.use_fov_head and cfg.use_fov_encoder else
+             "|" + (encoder if cfg.use_fov_head else head))
+    return re.compile(_UNUSED[fmt] + extra)
+
 
 # HF DINOv2 names -> Apple's (timm's) within one ViT; q, k, v apart
 _HF_VITS = {"depth_pro.encoder.patch_encoder.model.": "encoder.patch_encoder.",
-            "depth_pro.encoder.image_encoder.model.": "encoder.image_encoder."}
+            "depth_pro.encoder.image_encoder.model.": "encoder.image_encoder.",
+            "fov_model.fov_encoder.model.": "fov.encoder.0."}
 _HF_VIT_RENAMES = [
     (re.compile(r"^embeddings\.cls_token$"), "cls_token"),
     (re.compile(r"^embeddings\.position_embeddings$"), "pos_embed"),
@@ -273,8 +304,9 @@ _HF_QKV = re.compile(r"^encoder\.layer\.(\d+)\.attention\.attention\."
 
 
 def _hf_names() -> dict:
-    """{HF key: JAX name} of the non-ViT tensors (FOV off): the names of
-    ``vsc_tpu/models/convert.py``'s ``_hf_mapping``."""
+    """{HF key: JAX name} of the non-ViT tensors: the names of
+    ``vsc_tpu/models/convert.py``'s ``_hf_mapping`` with the FOV head and
+    its encoder on."""
     m = {}
 
     def conv(tk, jk, bias):
@@ -320,6 +352,10 @@ def _hf_names() -> dict:
     conv("head.layers.1", "head_deconv", bias=True)
     conv("head.layers.2", "head_conv2", bias=True)
     conv("head.layers.4", "head_out", bias=True)
+    conv("fov_model.conv", "fov/downsample_conv", bias=True)
+    for hf_i, jk in ((0, "head_conv0"), (2, "head_conv1"), (4, "head_out")):
+        conv(f"fov_model.head.layers.{hf_i}", f"fov/{jk}", bias=True)
+    conv("fov_model.fov_encoder.neck", "fov/encoder_linear", bias=True)
     return m
 
 
@@ -407,12 +443,15 @@ def interpolate_pos_embedding(pos, src_grid: int, dst_grid: int):
 def convert_state_dict(state: dict, model) -> dict:
     """An Apple (``depth_pro.pt``) or HF (``apple/DepthPro-hf``) state dict
     -> the port ``DepthPro``'s state_dict (float32 CPU tensors). The
-    tensors the port has no use for (FOV head, the coarsest fusion block's
-    first residual, DINOv2's mask token) are dropped; any other tensor left
-    over, any port parameter left unfilled or a shape that disagrees raises
-    ConversionError. Position tables of another tile grid are resized."""
+    tensors the model has no use for (the FOV head's or its encoder's where
+    the model lacks them, the coarsest fusion block's first residual,
+    DINOv2's mask token) are dropped; any other tensor left over, any port
+    parameter left unfilled (a model with the FOV head and a file without
+    it) or a shape that disagrees raises ConversionError. Position tables
+    of another tile grid are resized."""
     fmt = _detect_format(state)
-    state = {k: v for k, v in state.items() if not _UNUSED[fmt].search(k)}
+    unused = _unused(fmt, model.cfg)
+    state = {k: v for k, v in state.items() if not unused.search(k)}
     if fmt == "hf":
         state = _hf_to_apple(state, model.cfg)
     want = model.state_dict()

@@ -2,11 +2,9 @@
 DepthPro monocular depth estimator (PyTorch)
 ============================================
 
-Port of ``vsc_tpu/models/depthpro.py`` without the FOV head (the pipeline
-min-max normalizes the depth, so the FOV branch cannot change its output;
-``vsc_tpu/pipeline/depth_map_generator.py:58-63``). Modules carry the key
-names of Apple's ``depth_pro.pt`` as ``vsc_tpu/models/convert.py``'s
-``_apple_mapping`` reads them:
+Port of ``vsc_tpu/models/depthpro.py``, the FOV head included. Modules
+carry the key names of Apple's ``depth_pro.pt`` as
+``vsc_tpu/models/convert.py``'s ``_apple_mapping`` reads them:
 
   encoder.patch_encoder / encoder.image_encoder   two ViT-L/16 (models/vit.py)
   encoder.upsample_latent0|latent1|0|1|2           Sequential(1x1 conv,
@@ -16,6 +14,9 @@ names of Apple's ``depth_pro.pt`` as ``vsc_tpu/models/convert.py``'s
   decoder.fusions.{i}.resnet1|resnet2 (Sequential(ReLU, Conv, ReLU, Conv)),
                       .deconv, .out_conv
   head.{0,1,2,4}
+  fov.encoder.0 (a third ViT), fov.encoder.1 (Linear), fov.downsample.0,
+  fov.head.{0,2,4}; without the FOV encoder fov.head.{0,2,4,6}, the
+  downsample conv first
 
 The coarsest fusion block has no skip input, so (as in the JAX parameter
 tree) it has no ``resnet1``. Tensors have the [N, C, H, W] shape inside
@@ -28,10 +29,17 @@ guard ``deconv2x2_supported`` accepts to the deconv kernel
 (ops/deconv_cuda.py), as the JAX module does at
 ``vsc_tpu/models/depthpro.py:200-220``; the route is off by default.
 
+The FOV head (``use_fov_head``, on by default as in the JAX package) adds
+the field of view in degrees and scales the canonical inverse depth to the
+metric one. The pipeline builds DepthPro with the head off, as the JAX
+package's does (``vsc_tpu/pipeline/depth_map_generator.py:58-76``): it
+min-max normalizes the depth, so the head cannot change its output.
+
 On a mesh with a model axis, ``parallel/sharding.shard_params`` gives the
-blocks of both encoders their model-axis ranks (tensor parallel, and
-sequence parallel under ``encoder.seq_shard``; ``models/vit.py``); the
-convolutions and the decoder stay whole on the replica's device, as
+blocks of every encoder (the FOV encoder's too) their model-axis ranks
+(tensor parallel, and sequence parallel under ``encoder.seq_shard``;
+``models/vit.py``); the convolutions, the FOV encoder's Linear and the
+decoder stay whole on the replica's device, as
 ``vsc_tpu/parallel/sharding.param_shardings`` leaves them replicated.
 """
 
@@ -48,7 +56,8 @@ from vsc_tpu_torch.models.vit import ViT, ViTConfig
 from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_supported,
                                            pack_weight)
 
-__all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV"]
+__all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV",
+           "preprocess_frames"]
 
 DECONV_ENV = "VSC_TPU_PALLAS_DECONV"
 
@@ -61,6 +70,10 @@ class DepthProConfig:
     hook_block_ids: tuple[int, int] = (5, 11)
     decoder_features: int = 256
     dims_encoder: tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    use_fov_head: bool = True
+    # Apple's full model runs a third ViT for the FOV branch; without it the
+    # FOV head works from the decoder's global feature alone.
+    use_fov_encoder: bool = True
 
     def __post_init__(self):
         if self.img_size != 4 * self.tile_size:
@@ -74,6 +87,23 @@ class DepthProConfig:
     @property
     def grid(self) -> int:
         return self.tile_size // self.encoder.patch_size
+
+    @staticmethod
+    def tiny() -> "DepthProConfig":
+        """The JAX package's test config: the same topology at a 64^2
+        input, 16^2 tiles (8 x 8 tokens) and a shallow ViT."""
+        return DepthProConfig(
+            img_size=64, tile_size=16,
+            encoder=ViTConfig(img_size=16, patch_size=2, embed_dim=32,
+                              depth=4, num_heads=2),
+            hook_block_ids=(0, 2), decoder_features=16,
+            dims_encoder=(16, 24, 32, 32))
+
+
+def preprocess_frames(rgb_u8):
+    """uint8 [B, H, W, 3] RGB -> the model's input in [-1, 1]
+    (x / 127.5 - 1, DepthPro's normalization), on the frames' device."""
+    return rgb_u8.to(torch.float32) / 127.5 - 1.0
 
 
 def _downscale2tap(x, factor: int):
@@ -284,11 +314,51 @@ class MultiresConvDecoder(nn.Module):
             FeatureFusion(dd, deconv=i != 0, skip=i != 4) for i in range(5))
 
     def forward(self, encodings):
+        """-> (the features at S/2, the projected global feature at S/32,
+        which feeds the FOV head)."""
         projected = [conv(e) for conv, e in zip(self.convs, encodings)]
         x = self.fusions[4](projected[4])
         for i in (3, 2, 1, 0):
             x = self.fusions[i](x, projected[i])
-        return x
+        return x, projected[4]
+
+
+class FOVNetwork(nn.Module):
+    """Apple's FOVNetwork: the decoder's global feature strided down to the
+    token grid, plus (with ``use_fov_encoder``) a third ViT on the quarter-
+    size input through a Linear, then a funnel of stride-2 convolutions and
+    a VALID ``grid/4`` one down to one scalar, the horizontal field of view
+    in degrees (no activation). Every convolution pads ``k // 2`` on both
+    sides, as the JAX module's ``_conv`` does, stride 2 included."""
+
+    def __init__(self, cfg: DepthProConfig):
+        super().__init__()
+        self.grid = cfg.grid
+        dd = cfg.decoder_features
+        c4, c8 = math.ceil(dd / 4), math.ceil(dd / 8)
+        down = [nn.Conv2d(dd, dd // 2, 3, stride=2, padding=1), nn.ReLU()]
+        head = [nn.Conv2d(dd // 2, c4, 3, stride=2, padding=1), nn.ReLU(),
+                nn.Conv2d(c4, c8, 3, stride=2, padding=1), nn.ReLU(),
+                nn.Conv2d(c8, 1, cfg.grid // 4)]
+        if cfg.use_fov_encoder:
+            self.encoder = nn.Sequential(
+                ViT(cfg.encoder), nn.Linear(cfg.encoder.embed_dim, dd // 2))
+            self.downsample = nn.Sequential(*down)
+        else:
+            head = down + head
+        self.head = nn.Sequential(*head)
+
+    def forward(self, x, global_feature):
+        """x: the model's [B, 3, S, S] input, already in its compute dtype
+        (the JAX module casts before it downscales); -> [B] float32."""
+        if hasattr(self, "encoder"):
+            vit, neck = self.encoder
+            tokens, _ = vit(_downscale2tap(x, 4))
+            feat = (_tokens_to_map(neck(tokens), self.grid)
+                    + self.downsample(global_feature))
+        else:
+            feat = global_feature
+        return self.head(feat).reshape(-1).float()
 
 
 class DepthPro(nn.Module):
@@ -301,13 +371,26 @@ class DepthPro(nn.Module):
         self.head = nn.Sequential(
             _conv(dd, dd // 2, 3), _convT(dd // 2, dd // 2, bias=True),
             _conv(dd // 2, 32, 3), nn.ReLU(), _conv(32, 1, 1), nn.ReLU())
+        if cfg.use_fov_head:
+            self.fov = FOVNetwork(cfg)
 
     def forward(self, images):
         """images: [B, S, S, 3] in [-1, 1] -> {"canonical_inverse_depth":
-        [B, S', S'] float32, "inverse_depth": the same (no FOV head)}."""
+        [B, S', S'] float32 (relative nearness), "fov_deg": [B] float32,
+        the horizontal field of view (with the FOV head), "inverse_depth":
+        the metric inverse depth, canonical * 2 tan(fov / 2) (canonical
+        without the head)}."""
         dt = self.head[0].weight.dtype
         x = images.permute(0, 3, 1, 2).to(dt)
-        feats = self.decoder(self.encoder(x))
+        feats, glob = self.decoder(self.encoder(x))
         canonical = self.head(feats)[:, 0].float()
-        return {"canonical_inverse_depth": canonical,
-                "inverse_depth": canonical}
+        out = {"canonical_inverse_depth": canonical}
+        if not self.cfg.use_fov_head:
+            out["inverse_depth"] = canonical
+            return out
+        fov_deg = self.fov(x, glob)
+        # W / f_px with f_px = 0.5 W / tan(fov / 2), in float32
+        tan_half = torch.tan(torch.deg2rad(fov_deg) / 2.0)
+        out["fov_deg"] = fov_deg
+        out["inverse_depth"] = canonical * (2.0 * tan_half)[:, None, None]
+        return out

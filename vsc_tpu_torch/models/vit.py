@@ -3,7 +3,7 @@ Vision Transformer backbone (PyTorch)
 =====================================
 
 Port of ``vsc_tpu/models/vit.py``: the DINOv2-style ViT-L/16 DepthPro uses
-as its patch and image encoders, as ``nn.Module``s named after timm's
+as its patch, image and FOV encoders, as ``nn.Module``s named after timm's
 ViT (the keys of Apple's ``depth_pro.pt``): ``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1, attn.qkv, attn.proj,
 ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``.
@@ -267,13 +267,16 @@ def _lecun_normal_(w, fan_in: int, generator):
 @torch.no_grad()
 def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter following the JAX package's flax init laws:
-    xavier-uniform for Linear and the patch conv, lecun-normal for other
-    convs and transposed convs, zero biases, LayerNorm (1, 0), LayerScale at
-    its init value, cls token 0, pos_embed N(0, 0.02)."""
+    xavier-uniform for the ViT's Linear and the patch conv, lecun-normal for
+    other convs, transposed convs and the FOV encoder's Linear (a flax
+    default Dense), zero biases, LayerNorm (1, 0), LayerScale at its init
+    value, cls token 0, pos_embed N(0, 0.02)."""
     from vsc_tpu_torch.models.depthpro import ConvT2x2
     for name, m in module.named_modules():
-        if isinstance(m, nn.Linear) or (isinstance(m, nn.Conv2d)
-                                        and name.endswith("patch_embed.proj")):
+        if name.endswith("fov.encoder.1"):
+            _lecun_normal_(m.weight, m.weight.shape[1], generator)
+        elif isinstance(m, nn.Linear) or (
+                isinstance(m, nn.Conv2d) and name.endswith("patch_embed.proj")):
             nn.init.xavier_uniform_(m.weight, generator=generator)
         elif isinstance(m, nn.Conv2d):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)

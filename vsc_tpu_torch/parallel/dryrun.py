@@ -48,7 +48,7 @@ def small_config():
         encoder=ViTConfig(img_size=SIZE // 4, patch_size=3, embed_dim=256,
                           depth=2, num_heads=4, seq_shard=True),
         hook_block_ids=(0, 1), decoder_features=16,
-        dims_encoder=(16, 16, 16, 16))
+        dims_encoder=(16, 16, 16, 16), use_fov_head=False)
 
 
 def sbs_params() -> dict:

@@ -89,8 +89,11 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
                 "DepthPro input size must be a multiple of 512 (tile = "
                 "size/4, ViT/16 token grid must be a multiple of 8); the "
                 f"production size is 1536. Got {input_size}.")
+        # no FOV head, as in the JAX pipeline: the depth is min-max
+        # normalized, so the head (a third ViT-L) cannot change it
         cfg = DepthProConfig(img_size=input_size, tile_size=input_size // 4,
-                             encoder=ViTConfig(img_size=input_size // 4))
+                             encoder=ViTConfig(img_size=input_size // 4),
+                             use_fov_head=False)
     device = torch.device(device)
     with device:
         model = DepthPro(cfg)
@@ -125,6 +128,7 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     runs each shard on its own row and returns a ``Sharded`` depth that
     ``generate_sbs`` takes; a plain tensor runs on the first row."""
     from vsc_tpu_torch import default_device
+    from vsc_tpu_torch.models.depthpro import preprocess_frames
     from vsc_tpu_torch.ops.resize import resize
     from vsc_tpu_torch.parallel.mesh import Sharded, on_device
 
@@ -159,8 +163,7 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     def one(infer, frames_u8):
         x = frames_u8.to(torch.float32)
         x = resize(x, input_size, input_size, "bilinear", channel_last=True)
-        x = x / 127.5 - 1.0
-        depth = infer(x)                                  # [B, S', S']
+        depth = infer(preprocess_frames(x))               # [B, S', S']
         depth = resize(depth, out_h, out_w, "bilinear")
         d_min = depth.amin(dim=(1, 2), keepdim=True)
         d_max = depth.amax(dim=(1, 2), keepdim=True)
