@@ -109,7 +109,26 @@ Drives the port's streaming main path on the card and checks it:
      launches, ``fov_deg`` within 1e-3 degrees of the plain path; (c) TP 2
      + ``seq_shard`` with the head on a (1 x 2) mesh naming cuda:0 twice,
      ``fov_deg`` and the u8 depth within the unsharded bf16-vs-float32
-     difference.
+     difference;
+ 10. the bench: (a) each kernel of its path against its plain version at
+     its batch-8 shapes (the SBS pair [4, 16, 3240, 6090], the qkv
+     attention [288, 577, 3072]), and its SBS bound
+     (``utils/flops.sbs_least_time``) equal to those kernels' bounds on the
+     real tensors (the postprocess's at most: it leaves out the hole
+     work); (b) as a user runs it: ``python -m vsc_tpu_torch.bench`` as a
+     child process at its defaults (full-width DepthPro in bf16, batch 8,
+     8 iterations, the SSIM gate and the extras on), its last line parsed
+     and checked: ``quality_gate`` PASS with every ``ssim_*`` >= 0.99, no
+     ``ssim_error`` or ``extras_error``, ``value`` > 0, ``depth_mfu_pct``
+     and ``sbs_roofline_attained_pct`` in (0, 100], the two media readings
+     skipped exactly where vscmedia does not start, and the launches of
+     the bench's timed iterations (its stderr; counts reset after its
+     warm-up): each default-path SBS kernel every iteration, the qkv
+     attention 48 times an iteration, no opt-in route's kernel; then once
+     more at ``BENCH_DEPTH=stub BENCH_EXTRAS=0``, the SBS reading on its
+     own (no attention launch). The oracle frames (CPU) are computed by
+     the first run and read from the shared disk cache by the second;
+     their times are logged.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -122,6 +141,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py --phases 1,7      # build + parallel/
     python3 chip_smoke.py --phases 1,8      # build + the 4K main path
     python3 chip_smoke.py --phases 1,9      # build + the FOV head
+    python3 chip_smoke.py --phases 1,10     # build + the bench
 """
 
 from __future__ import annotations
@@ -168,44 +188,9 @@ KERNELS = [
      "vsc_tpu/ops/attention_pallas.py:185"),
 ]
 
-# The least time the card could take for a kernel's work (NVIDIA H100 SXM,
-# data sheet at 700 W): each input byte read once and each output byte
-# written once at the memory rate, or the operations the function needs on
-# these inputs at the peak rate of their type, whichever is larger.
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"f32": 67e12, "bf16_tensor": 989e12}
-
-
-def least_time(nbytes: float, **ops: float) -> dict:
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max((n / PEAK_OPS_S[k] for k, n in ops.items()), default=0.0)
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-# Kernels that must round as their plain versions do write every f32
-# multiply and add as its own instruction (__fmul_rn / __fadd_rn, no FMA
-# contraction), and the card issues ~33.5 T of those a second (132 SMs x
-# 128 lanes x ~1.98 GHz): half the 67 TFLOP/s above, which counts an FMA as
-# two operations. Their floor is the operation count at that rate.
-LANE_OPS_S = 33.5e12
-
-
-def issue_floor(ops: float) -> dict:
-    return {"issue_floor_ms": 1e3 * ops / LANE_OPS_S}
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
-
-
-def bilateral_ops(smoothing: float, pixels: int) -> float:
-    """~20 f32 operations (3 sub, 3 abs, 2 add, 3 mul, exp, 6 for num and
-    den) per tap of the bilateral disc and ~6 per pixel."""
-    from vsc_tpu_torch.ops.postprocess_cuda import bilateral_geometry
-    _, taps = bilateral_geometry(smoothing)
-    return pixels * (20.0 * len(taps) + 6.0)
 
 
 def postprocess_ops(eye4, smoothing: float) -> float:
@@ -218,6 +203,7 @@ def postprocess_ops(eye4, smoothing: float) -> float:
     import torch
     import torch.nn.functional as F
     from vsc_tpu_torch.ops.inpaint import disc_offsets
+    from vsc_tpu_torch.utils.flops import bilateral_ops
     from vsc_tpu_torch.ops.postprocess_cuda import (FILL_RADIUS,
                                                     POLISH_RADIUS, SWEEPS)
     fill, polish = disc_offsets(FILL_RADIUS), disc_offsets(POLISH_RADIUS)
@@ -456,6 +442,7 @@ def attention_check(N: int, g) -> dict:
     random qkv [N, 577, 3072] bf16 at 16 heads (DepthPro's ViT blocks: N is
     36 a frame, 35 tiles and the image)."""
     import torch
+    from vsc_tpu_torch.utils.flops import least_time
     from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
                                                   qkv_attention_plain)
     qkv = torch.randn((N, 577, 3072), generator=g, device=g.device).to(
@@ -581,6 +568,8 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920, phase: int = 2):
     chain it sits in (each stage's kernel output is the next stage's
     input)."""
     import torch
+    from vsc_tpu_torch.utils.flops import (bilateral_ops, issue_floor,
+                                           least_time)
     import torch.nn.functional as F
     from vsc_tpu_torch.ops import stereo
     from vsc_tpu_torch.ops.bilateral_cuda import (bilateral_pool_planar,
@@ -839,6 +828,7 @@ def phase_depth_kernels(B: int):
     and bf16, and at head dims 16 and 128, each against its plain version,
     with the library call's time."""
     import torch
+    from vsc_tpu_torch.utils.flops import least_time
     import torch.nn.functional as F
     from vsc_tpu_torch.ops.attention_cuda import (short_seq_attention,
                                                   short_seq_attention_plain)
@@ -973,6 +963,7 @@ def attention_two_pass(B: int) -> None:
     two-pass route) and short_seq_attention (f32), against the plain
     versions, with SDPA's time beside them."""
     import torch
+    from vsc_tpu_torch.utils.flops import least_time
     import torch.nn.functional as F
     from vsc_tpu_torch.ops import _cuda
     from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
@@ -2876,9 +2867,167 @@ def phase_fov(card: str) -> dict:
             "attention_split": l32["attention_split"]}
 
 
+BENCH_TIMEOUT = 900.0   # phase 10: one bench run's limit, seconds
+BENCH_BATCH = 8         # phase 10: the bench's default batch
+
+
+def bench_batch_kernels() -> dict:
+    """Phase 10 (a): each kernel of the bench's path against its plain
+    version at the bench's batch-8 shapes (the SBS pair [4, 16, 3240,
+    6090], the qkv attention [288, 577, 3072]), and the bench's SBS bound,
+    ``utils/flops.sbs_least_time``, against these kernels' own bounds on
+    the real tensors: equal for every kernel but the postprocess, whose
+    bound here adds the fill and polish of this run's hole pixels. Returns
+    a row per launch counter (merge_ss)."""
+    import torch
+    from vsc_tpu_torch.utils.flops import sbs_least_time
+    B = BENCH_BATCH
+    ss = phase_ss_kernels(B, phase=10)
+    rows = merge_ss(ss)
+    torch.cuda.empty_cache()
+    att = rows["attention"] = attention_check(
+        36 * B, torch.Generator(torch.device("cuda")).manual_seed(3))
+    log(f"phase 10: (a) attention [{36 * B}, 577, 3072] bf16: max_abs_err "
+        f"{att['max_abs_err']:.3g} [{att['bound']}], kernel {att['ms']:.3f} "
+        f"ms, plain {att['plain_ms']:.3f} ms, sdpa {att['library_ms']:.3f} "
+        f"ms, bound {att['bound_ms']:.3f} ms ({att['bound_by']})")
+    model = sbs_least_time(1080, 1920)["stages"]
+    for name, r in ss.items():
+        if name not in model:       # the split route's bilateral
+            continue
+        want = B * model[name]["ms"]
+        ok = (want <= r["bound_ms"] * (1 + 1e-9) if name == "postprocess"
+              else abs(want - r["bound_ms"]) <= 1e-9 * r["bound_ms"])
+        check(ok, f"sbs_least_time's {name} stage: {want} ms a batch of "
+                  f"{B}, the kernel's bound {r['bound_ms']} ms")
+    log(f"phase 10: (a) sbs_least_time's kernel stages equal the kernels' "
+        f"bounds on the batch-{B} tensors (the postprocess's "
+        f"{B * model['postprocess']['ms']:.4f} ms without the hole work, "
+        f"{ss['postprocess']['bound_ms']:.4f} ms with it)")
+    del ss
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_bench_line(line: dict, media: bool, extras: bool = True,
+                     full: bool = True) -> None:
+    """Phase 10's rule for a line of ``python -m vsc_tpu_torch.bench``: the
+    quality gate passed on every SSIM point with no measurement error, a
+    positive fps, with ``full`` (the DepthPro run) the MFU and with
+    ``extras`` the roofline share in (0, 100], and the media readings
+    skipped exactly when the media engine does not start (``media``)."""
+    from vsc_tpu_torch.bench import MEDIA_KEYS, NO_MEDIA, SSIM_GATE
+    d = line["detail"]
+    check(d["quality_gate"] == "PASS", f"bench quality gate "
+          f"{d['quality_gate']}")
+    for err in ("ssim_error", "extras_error"):
+        check(err not in d, f"bench {err}: {d.get(err)}")
+    ssims = {k: v for k, v in d.items() if k.startswith("ssim_")}
+    check(len(ssims) == 3 and all(v >= SSIM_GATE for v in ssims.values()),
+          f"bench SSIM points {ssims}")
+    check(line["value"] > 0, f"bench fps {line['value']}")
+    if full:
+        mfu = d["depth_mfu_pct"]
+        check(mfu is not None and 0 < mfu <= 100, f"bench depth MFU {mfu}")
+    if extras:
+        att = d["sbs_roofline_attained_pct"]
+        check(0 < att <= 100, f"bench SBS roofline share {att}")
+        for key in MEDIA_KEYS:
+            check((d[key] == NO_MEDIA) != media,
+                  f"bench {key} = {d[key]!r} with the media engine "
+                  f"{'starting' if media else 'not starting'}")
+
+
+def run_bench(what: str, env: dict) -> tuple[dict, dict]:
+    """``python -m vsc_tpu_torch.bench`` as a child process with ``env``
+    over this environment less its BENCH_* knobs; its line and the kernel
+    launches of its timed iterations, after logging both, the run's
+    seconds and the oracle frames it computed."""
+    env = {**{k: v for k, v in os.environ.items()
+              if not k.startswith("BENCH_")}, **env}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vsc_tpu_torch.bench"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench ({what}) exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    oracle = [ln for ln in proc.stderr.splitlines()
+              if ln.startswith("bench: oracle")]
+    counted = [ln for ln in proc.stderr.splitlines()
+               if ln.startswith("bench: kernel launches")]
+    check(len(counted) == 1, f"bench ({what}) printed no launch counts")
+    launches = json.loads(counted[0][counted[0].index("{"):])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"phase 10: bench ({what}) in {secs:.1f} s; "
+        + ("; ".join(oracle) or "every oracle frame from the disk cache"))
+    log(f"phase 10: bench line ({what}): {json.dumps(line)}")
+    log(f"phase 10: launches over its {line['detail']['iters']} timed "
+        f"iterations: {launches}")
+    return line, launches
+
+
+def check_bench_launches(launches: dict, iters: int, full: bool) -> None:
+    """Every default-path SBS kernel launched each timed iteration, the
+    qkv attention 48 times an iteration (24 blocks x 2 ViTs) with
+    DepthPro and not with the stub, and no opt-in route's kernel."""
+    for name, n in launches.items():
+        if name in SBS_STEP_KERNELS:
+            check(n > 0 and n % iters == 0, f"bench {name} launches {n}")
+        elif name == "attention":
+            check(n == (48 * iters if full else 0),
+                  f"bench attention launches {n}")
+        else:
+            check(n == 0, f"bench {name} launches {n} off its route")
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 10: (a) bench_batch_kernels, (b) the bench as a child, at its
+    defaults and on the stub depth. Returns (a)'s rows and the launches of
+    the default run's timed iterations."""
+    import gc
+    import torch
+    from vsc_tpu_torch.native import vscmedia_path
+    from vsc_tpu_torch.utils.flops import (HBM_BYTES_S, PEAK_OPS_S,
+                                           sbs_roofline)
+    rows = bench_batch_kernels()
+    # the child needs the card's memory that this process holds cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    media = vscmedia_path() is not None
+    log(f"phase 10: {card}; media engine "
+        f"{'starts' if media else 'does not start (no libav)'}; this "
+        f"process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as cache:
+        full, launches = run_bench("defaults: full, batch 8, iters 8",
+                                   {"VSC_TPU_ORACLE_CACHE": cache})
+        check_bench_line(full, media)
+        check_bench_launches(launches, full["detail"]["iters"], True)
+        stub, l_stub = run_bench("BENCH_DEPTH=stub BENCH_EXTRAS=0",
+                                 {"VSC_TPU_ORACLE_CACHE": cache,
+                                  "BENCH_DEPTH": "stub", "BENCH_EXTRAS": "0"})
+        check_bench_line(stub, media, extras=False, full=False)
+        check_bench_launches(l_stub, stub["detail"]["iters"], False)
+    d, s = full["detail"], stub["detail"]
+    log(f"phase 10: {card}: {full['value']} frames/s, depth "
+        f"{d['depth_ms_per_frame']} ms/frame at {d['depth_mfu_pct']} % of "
+        f"{PEAK_OPS_S['bf16_tensor'] / 1e12:.0f} TFLOP/s bf16; SBS "
+        f"{d['sbs_ms_per_frame']} ms/frame (stub run: "
+        f"{s['sbs_ms_per_frame']}), bound (sbs_least_time) "
+        f"{d['sbs_roofline_ms']} ms ({HBM_BYTES_S / 1e12} TB/s, "
+        f"{PEAK_OPS_S['f32'] / 1e12:.0f} TFLOP/s f32), attained "
+        f"{d['sbs_roofline_attained_pct']} % (the JAX package's f32 stage "
+        f"model on the card's rates: {sbs_roofline(1080, 1920)['ms']} ms); "
+        f"worst case "
+        f"{d['sbs_worstcase_noise_depth_ms_per_frame']} ms/frame; SSIM "
+        + ", ".join(f"{k} {v}" for k, v in d.items()
+                    if k.startswith("ssim_")))
+    return {"kernels": rows, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -2918,9 +3067,12 @@ def main(argv=None) -> int:
         phase_parallel(card)
     k4 = phase_4k_main(card) if 8 in phases else {}
     fov = phase_fov(card) if 9 in phases else {}
+    bench = phase_bench(card) if 10 in phases else {}
     # where phase 3 ran not: the step path's, else the 4K path's, else the
-    # FOV head's
-    for name, n in {**fov, **k4.get("launches", {}), **step}.items():
+    # FOV head's, else the bench's
+    for name, n in {**bench.get("launches", {}), **fov,
+                    **k4.get("launches", {}),
+                    **step}.items():
         launches.setdefault(name, n)
     check(not any(m.split(".")[0] in ("jax", "flax", "vsc_tpu")
                   for m in sys.modules),
@@ -2934,7 +3086,9 @@ def main(argv=None) -> int:
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")},
          "at_4k": k4.get("kernels", {}).get(name),
-         "fov_launches": fov.get(name, 0)}
+         "fov_launches": fov.get(name, 0),
+         "bench_launches": bench.get("launches", {}).get(name, 0),
+         "at_bench_batch": bench.get("kernels", {}).get(name)}
         for name, route, src, rep in KERNELS]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -20,6 +20,10 @@ It mirrors the reference's sub-package layout and module names:
              framework-free layers (workflow config, media engine, probe,
              image I/O, the step pipeline's threads, console)
   csrc/      CUDA C++ sources of the kernels (built with nvcc at first use)
+  bench.py   the measurement entry point (``python -m vsc_tpu_torch.bench``,
+             the JAX package's root ``bench.py`` on the card), with
+             ``utils/flops.py`` (work counts, the card's peaks) and
+             ``utils/oracle.py`` (its SSIM gate's reference)
 
 Public functions keep the reference's layouts ([B, H, W, 3] u8 frames,
 [B, H, W] depth, [B, H, 2W, 3] SBS). Nothing here imports jax, flax or
