@@ -1166,3 +1166,136 @@ def test_fov_head_kernel_route_equals_plain(dev, monkeypatch, dtype):
         kernel = float((got[k] - f32[k]).abs().max())
         plain = float((want[k] - f32[k]).abs().max())
         assert kernel <= plain + ulp, (k, kernel, plain, ulp)
+
+
+# ---- the postprocess's tile counters and the spans on the card
+# (utils/profiling: on while a torch.profiler session is open)
+
+def _pp_hole_pair(layout, dev):
+    B, H, W = 2, 5 * TILE_H + 11, 7 * TILE_W + 3
+    eye4 = _pp_frame(B, H, W, 31, dev)
+    if layout == "scattered":
+        eye4[3] = (_rand((B, H, W), 32, dev) > 0.002).to(torch.uint8)
+    elif layout == "clustered":
+        eye4[3, :, 10:70, 20:26] = 0
+        eye4[3, 1, 3 * TILE_H:3 * TILE_H + 2, :] = 0
+    elif layout == "all_holes":
+        eye4[3] = 0
+    eye4[:3] *= (eye4[3] > 0)[None]
+    img = torch.movedim(eye4[:3], 0, -1).float()
+    smooth_q = _pyramid_fill(img, eye4[3].float()[..., None], coarse_factor=4,
+                             return_coarse=True).permute(3, 0, 1, 2)
+    return eye4, smooth_q.contiguous()
+
+
+@pytest.mark.parametrize("layout", ["none", "scattered", "clustered",
+                                    "all_holes"])
+def test_postprocess_counts_its_tiles_and_hole_tiles(dev, layout):
+    """While tracing, postprocess.hole_tiles and postprocess.fast_tiles
+    count exactly the hole tiles (``hole_tiles``) and the other tiles of
+    each launch, and the output is byte-equal to an untraced launch's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsc_tpu_torch.utils import profiling
+    eye4, smooth_q = _pp_hole_pair(layout, dev)
+    tiles = hole_tiles(eye4[3])
+    _cuda.reset_launches()
+    want = postprocess_eye(eye4, smooth_q, 1.0)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [postprocess_eye(eye4, smooth_q, 1.0) for _ in range(3)]
+    holes = int(tiles.sum())
+    assert profiling.counters() == {
+        "postprocess.hole_tiles": 3 * holes,
+        "postprocess.fast_tiles": 3 * (tiles.numel() - holes)}
+    for g in got:
+        assert torch.equal(g, want)
+    _cuda.reset_launches()
+    assert profiling.counters() == {}
+
+
+def test_postprocess_gets_a_null_counter_pointer_untraced(dev, monkeypatch):
+    """Untraced (the benchmark's --trace 0), the kernel is handed a null
+    counter pointer and no span is recorded; traced, a device pointer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsc_tpu_torch.utils import profiling
+    lib = _cuda.library()
+    seen = []
+
+    class Spy:
+        def vsc_postprocess(self, *args):
+            seen.append(args[-2])
+            return lib.vsc_postprocess(*args)
+    monkeypatch.setattr(_cuda, "library", lambda: Spy())
+    eye4, smooth_q = _pp_hole_pair("clustered", dev)
+    profiling.reset()
+    postprocess_eye(eye4, smooth_q, 1.0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        postprocess_eye(eye4, smooth_q, 1.0)
+    postprocess_eye(eye4, smooth_q, 1.0)
+    assert seen[0] is None and seen[2] is None
+    assert isinstance(seen[1], int) and seen[1] != 0
+    assert profiling.spans() == []
+
+
+def test_a_profiled_render_step_leaves_no_device_event_of_the_program(dev):
+    """One step as the convert cells run it (copy in, depth, SBS, copy
+    out on the dispatch thread) under the profiler, reduced as the
+    benchmark reduces it: the program's marks are host events only, every
+    span is recorded, the device spans carry event times, and the depth's
+    encoder and decoder lie inside it."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vsc_tpu_torch.models import DepthProConfig
+    from vsc_tpu_torch.parallel import health
+    from vsc_tpu_torch.parallel.auto import gather, shard_batch
+    from vsc_tpu_torch.pipeline import depth_map_generator
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    from vsc_tpu_torch.utils import profiling
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "benchmark"))
+    from lib import trace as bench_trace
+
+    cfg = dataclasses.replace(DepthProConfig.tiny(), use_fov_head=False,
+                              use_fov_encoder=False)
+    depth_fn = depth_map_generator.build_depth_fn(
+        "depthpro", 64, 72, 128, False, device=dev, model_cfg=cfg)
+    frames = np.random.default_rng(3).integers(0, 256, (2, 72, 128, 3),
+                                               dtype=np.uint8)
+
+    def step():
+        return gather(render_sbs(shard_batch(frames, dev), depth_fn,
+                                 StereoParams())).numpy()
+    want = health.run_with_deadline(step, 300)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with record_function(bench_trace.STEP):
+                got = health.run_with_deadline(step, 300)
+        torch.cuda.synchronize()
+    assert np.array_equal(got, want)
+    red = bench_trace.reduce_profile(prof)
+    assert red["steps"] == 3 and red["device"]
+    assert not [n for _, _, n in red["device"] if n.startswith("vsc.")]
+    assert [n for _, _, n in red["host"] if n == "vsc.dispatch"] == \
+        3 * ["vsc.dispatch"]
+    s = profiling.spans()
+    names = [x["name"] for x in s]
+    for n in ("dispatch", "transfer.copy_in", "depth", "depth.encoder",
+              "depth.decoder", "sbs", "transfer.drain", "transfer.copy_out"):
+        assert names.count(n) == 3, (n, names)
+    for x in s:
+        device = x["name"] in ("depth", "depth.encoder", "depth.decoder",
+                               "sbs")
+        assert (x["device_ms"] is not None) == device, x
+        if device:
+            assert x["device_ms"] > 0
+    depth = sum(x["device_ms"] for x in s if x["name"] == "depth")
+    parts = sum(x["device_ms"] for x in s
+                if x["name"] in ("depth.encoder", "depth.decoder"))
+    assert 0 < parts < depth

@@ -55,6 +55,7 @@ from torch import nn
 from vsc_tpu_torch.models.vit import ViT, ViTConfig
 from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_supported,
                                            pack_weight)
+from vsc_tpu_torch.utils.profiling import span
 
 __all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV",
            "preprocess_frames"]
@@ -379,11 +380,16 @@ class DepthPro(nn.Module):
         [B, S', S'] float32 (relative nearness), "fov_deg": [B] float32,
         the horizontal field of view (with the FOV head), "inverse_depth":
         the metric inverse depth, canonical * 2 tan(fov / 2) (canonical
-        without the head)}."""
+        without the head)}. While tracing (``utils/profiling``) the encoder
+        and the decoder with the head are device spans, "depth.encoder"
+        and "depth.decoder"."""
         dt = self.head[0].weight.dtype
         x = images.permute(0, 3, 1, 2).to(dt)
-        feats, glob = self.decoder(self.encoder(x))
-        canonical = self.head(feats)[:, 0].float()
+        with span("depth.encoder", frames=x.shape[0], device=x.is_cuda):
+            encodings = self.encoder(x)
+        with span("depth.decoder", frames=x.shape[0], device=x.is_cuda):
+            feats, glob = self.decoder(encodings)
+            canonical = self.head(feats)[:, 0].float()
         out = {"canonical_inverse_depth": canonical}
         if not self.cfg.use_fov_head:
             out["inverse_depth"] = canonical

@@ -15,7 +15,11 @@ turns anything else into a RuntimeError. ``LAUNCHES`` counts launches per
 kernel: each wrapper adds one right where it launches its kernel and
 nowhere else, so a run can show that its main path went through them.
 ``ROUTE_LAUNCHES`` counts the split attention kernel's launches by route
-(``ops/attention_cuda.split_route``'s names).
+(``ops/attention_cuda.split_route``'s names). ``DEVICE_COUNTERS`` names
+the counters a kernel keeps on the card while tracing is on
+(``utils/profiling``): ``device_counter`` hands the kernel its int64
+counters, ``reset_launches`` drops them with the launch counts and
+``utils/profiling.counters`` reads them.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "reset_launches", "library",
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "DEVICE_COUNTERS", "reset_launches",
+           "device_counter", "library",
            "check", "stream_ptr", "require_cuda", "BUILD_SECONDS",
            "PTXAS_LOG"]
 
@@ -42,6 +47,13 @@ LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
             "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
             "bilateral": 0, "deconv": 0, "attention_split": 0}
 ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0}
+# group -> the fields of its counters, in the kernel's order. A group's
+# counters are COUNTER_SLOTS slots of COUNTER_STRIDE int64 (a 32-byte
+# sector a slot) that the kernel's blocks add to in turn, so that their
+# atomics do not queue on one address; the reading sums the slots
+DEVICE_COUNTERS = {"postprocess": ("fast_tiles", "hole_tiles")}
+COUNTER_SLOTS, COUNTER_STRIDE = 256, 4
+_COUNTER_TENSORS: dict = {}     # (group, CUDA device index) -> int64 tensor
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -61,8 +73,9 @@ _SIGNATURES = {
     # depth, image [B, 3, H, W] u8, eye_l, eye_r, B, H, W, channel stride of
     # the eyes' planes, max_disparity, stream
     "vsc_warp_planar_u8": [_P, _P, _P, _P, _I, _I, _I, _L, _F, _P],
-    # eye4, smooth_q, out, tables(host), B, H, W, Hq, Wq, rb, stream
-    "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # eye4, smooth_q, out, tables(host), B, H, W, Hq, Wq, rb, counters
+    # (device_counter("postprocess", ...), or null), stream
+    "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # qkv, out, N, T, heads, scale, stream
     "vsc_qkv_attention": [_P, _P, _I, _I, _I, _F, _P],
     # x, out, wa(host), wb(host), N, H, W, f, quantize_u8, stream
@@ -96,6 +109,25 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    _COUNTER_TENSORS.clear()
+
+
+def device_counter(group: str, device):
+    """The address of ``group``'s counters on the CUDA ``device`` while
+    tracing is on (made zero on first use), else None: the kernel's null
+    pointer, which makes it count nothing."""
+    from vsc_tpu_torch.utils.profiling import tracing
+    if not tracing():
+        return None
+    import torch
+    key = (group, device.index if device.index is not None
+           else torch.cuda.current_device())
+    t = _COUNTER_TENSORS.get(key)
+    if t is None:
+        t = _COUNTER_TENSORS[key] = torch.zeros(
+            (COUNTER_SLOTS, COUNTER_STRIDE), dtype=torch.int64,
+            device=torch.device("cuda", key[1]))
+    return t.data_ptr()
 
 
 def _nvcc() -> str:

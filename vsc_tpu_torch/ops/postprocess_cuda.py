@@ -34,7 +34,11 @@ takes its bilateral and skips stages 2-5, as the Pallas kernel skips its
 fill chain per block and per subtile: every pixel of such a tile is kept,
 so its output is its bilateral either way, and the output is the same.
 The Pallas kernel's early sweep exit changes nothing inside the image; the
-plain version runs neither skip.
+plain version runs neither skip. While tracing is on (``utils/profiling``)
+the kernel counts the tiles that take the fast path and the hole tiles
+into the device counters ``postprocess.fast_tiles`` and
+``postprocess.hole_tiles`` (``ops/_cuda``); the hole tiles are those of
+``hole_tiles`` below.
 """
 
 from __future__ import annotations
@@ -236,6 +240,7 @@ def postprocess_eye(eye4, smooth_q, smoothing: float):
     code = _cuda.library().vsc_postprocess(
         eye4.data_ptr(), smooth_q.data_ptr(), out.data_ptr(),
         tables.ctypes.data_as(ctypes.c_void_p), B, H, W, Hq, Wq, rb,
+        _cuda.device_counter("postprocess", eye4.device),
         _cuda.stream_ptr(eye4.device))
     _cuda.check(code, "vsc_postprocess")
     _cuda.LAUNCHES["postprocess"] += 1

@@ -72,6 +72,7 @@ from vsc_tpu_torch.ops.upsample_cuda import upsample_bilinear_int
 from vsc_tpu_torch.ops.warp_cuda import (forward_warp_eyes,
                                          forward_warp_pair_planar)
 from vsc_tpu_torch.parallel.mesh import Sharded, on_device
+from vsc_tpu_torch.utils.profiling import span
 
 __all__ = ["generate_sbs", "sbs_shapes", "StereoParams"]
 
@@ -183,8 +184,14 @@ def _generate_sbs_sharded(rgb, depth, params: StereoParams, mesh):
     parts = []
     for r, d, dev in zip(rgb.parts, depth.parts, mesh.data_devices):
         with on_device(dev):
-            parts.append(_generate_sbs_impl(r, d, params))
+            parts.append(_generate_sbs_spanned(r, d, params))
     return Sharded(tuple(parts), mesh)
+
+
+def _generate_sbs_spanned(rgb, depth, params: StereoParams):
+    """``_generate_sbs_impl`` in the device span "sbs" while tracing."""
+    with span("sbs", frames=rgb.shape[0], device=rgb.is_cuda):
+        return _generate_sbs_impl(rgb, depth, params)
 
 
 def generate_sbs(rgb, depth, params: StereoParams | None = None):
@@ -199,6 +206,8 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
       [B, H, 2W, 3] uint8 side-by-side frames (left | right), on the
       input's device. Inputs sharded over a data mesh (``_data_mesh_of``)
       give a ``Sharded`` result: each device converts its own frames.
+      While tracing (``utils/profiling``) each device's work is a device
+      span, "sbs".
     """
     params = params or StereoParams()
     mesh = _data_mesh_of(rgb, depth)
@@ -208,7 +217,7 @@ def generate_sbs(rgb, depth, params: StereoParams | None = None):
         raise ValueError("generate_sbs: sharded inputs need one data mesh "
                          "of more than one device that divides the batch, "
                          "for rgb and depth alike")
-    return _generate_sbs_impl(rgb, depth, params)
+    return _generate_sbs_spanned(rgb, depth, params)
 
 
 def _generate_sbs_impl(rgb, depth, params: StereoParams):

@@ -12,6 +12,11 @@ generate_sbs`` run each shard on its own card: the counterpart of the JAX
 package's SPMD dispatch over its data mesh, and of the reference's several
 SBS processes on one GPU. ``gather`` brings a result back to the host in
 shard order.
+
+While tracing is on (``utils/profiling``) the copies are spans:
+"transfer.copy_in" (``shard_batch``), "transfer.drain" (``gather``'s wait
+for the work queued before its copy) and "transfer.copy_out" (the copy
+itself, with the rows copied as its frames).
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ from __future__ import annotations
 import functools
 
 from vsc_tpu_torch.parallel.mesh import Mesh, Sharded, data_sharding
+from vsc_tpu_torch.utils.profiling import span, tracing
 
 __all__ = ["data_mesh", "device_count", "gather", "pad_to_multiple",
            "shard_batch"]
+
+_drain_events: dict = {}    # CUDA device index -> the event gather waits on
 
 
 @functools.lru_cache(maxsize=1)
@@ -67,30 +75,44 @@ def shard_batch(array, device, mesh: Mesh | None = None):
     the row count) and the result is ``Sharded``; otherwise a tensor on
     ``device`` (or the mesh's one row)."""
     import torch
-    t = torch.from_numpy(array)
-    mesh = data_mesh(device) if mesh is None else mesh
-    if mesh is not None and mesh.shape["data"] > 1:
-        n = mesh.shape["data"]
-        axis = data_sharding(mesh, t.ndim).axis_of("data")
-        if t.shape[axis] % n:
-            raise ValueError(f"shard_batch: a batch of {t.shape[axis]} does "
-                             f"not split over {n} data-axis devices")
-        devices = mesh.data_devices
-        if any(d.type == "cuda" for d in devices):
-            t = t.pin_memory()
-        return Sharded(tuple(p.to(d, non_blocking=True) for p, d in
-                             zip(t.chunk(n, axis), devices)), mesh)
-    if mesh is not None:
-        device = mesh.devices[0, 0]
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    with span("transfer.copy_in"):
+        t = torch.from_numpy(array)
+        mesh = data_mesh(device) if mesh is None else mesh
+        if mesh is not None and mesh.shape["data"] > 1:
+            n = mesh.shape["data"]
+            axis = data_sharding(mesh, t.ndim).axis_of("data")
+            if t.shape[axis] % n:
+                raise ValueError(f"shard_batch: a batch of {t.shape[axis]} "
+                                 f"does not split over {n} data-axis devices")
+            devices = mesh.data_devices
+            if any(d.type == "cuda" for d in devices):
+                t = t.pin_memory()
+            return Sharded(tuple(p.to(d, non_blocking=True) for p, d in
+                                 zip(t.chunk(n, axis), devices)), mesh)
+        if mesh is not None:
+            device = mesh.devices[0, 0]
+        if torch.device(device).type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
 
 def gather(result):
     """A device result as one CPU tensor: a ``Sharded`` one joined in shard
-    order. Waits for the device."""
+    order. Waits for the device (while tracing, in a span of its own
+    before the copy)."""
     import torch
-    if isinstance(result, Sharded):
-        return torch.cat([p.cpu() for p in result.parts])
-    return result.cpu()
+    parts = result.parts if isinstance(result, Sharded) else (result,)
+    if tracing():
+        with span("transfer.drain"):
+            for p in parts:
+                if p.is_cuda:
+                    ev = _drain_events.get(p.device.index)
+                    if ev is None:
+                        ev = _drain_events[p.device.index] = \
+                            torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(p.device))
+                    ev.synchronize()
+    with span("transfer.copy_out", frames=result.shape[0]):
+        if isinstance(result, Sharded):
+            return torch.cat([p.cpu() for p in parts])
+        return result.cpu()

@@ -11,10 +11,13 @@ retry). ``torch.cuda.synchronize`` takes the place of the JAX sync.
 
 from __future__ import annotations
 
+import contextvars
 import os
 import threading
 
 import torch
+
+from vsc_tpu_torch.utils.profiling import span
 
 __all__ = ["ACCEL_ERROR_EXIT_CODE", "check_accelerator_health",
            "run_with_deadline"]
@@ -37,7 +40,9 @@ def _run_probe(device) -> bool:
 def run_with_deadline(fn, timeout: float):
     """Run ``fn()`` on a daemon thread; its value, or TimeoutError once the
     deadline passes (the wedged thread is abandoned so the caller can still
-    exit 100). Exceptions from ``fn`` propagate unchanged."""
+    exit 100). Exceptions from ``fn`` propagate unchanged. The thread runs
+    in a copy of the caller's context, so the spans ``fn`` records
+    (``utils/profiling``) have the caller's "dispatch" span as parent."""
     out: list = []
     err: list = []
 
@@ -47,9 +52,11 @@ def run_with_deadline(fn, timeout: float):
         except BaseException as e:  # noqa: BLE001 — re-raised on the caller
             err.append(e)
 
-    t = threading.Thread(target=worker, daemon=True, name="vsc-dispatch")
-    t.start()
-    t.join(timeout)
+    with span("dispatch"):
+        t = threading.Thread(target=contextvars.copy_context().run,
+                             args=(worker,), daemon=True, name="vsc-dispatch")
+        t.start()
+        t.join(timeout)
     if t.is_alive():
         raise TimeoutError(
             f"device dispatch exceeded its {timeout:.0f}s deadline")

@@ -131,6 +131,7 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     from vsc_tpu_torch.models.depthpro import preprocess_frames
     from vsc_tpu_torch.ops.resize import resize
     from vsc_tpu_torch.parallel.mesh import Sharded, on_device
+    from vsc_tpu_torch.utils.profiling import span
 
     if mesh is not None:
         device = mesh.devices[0, 0]
@@ -161,14 +162,17 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     out_dtype = torch.uint16 if use_16bit else torch.uint8
 
     def one(infer, frames_u8):
-        x = frames_u8.to(torch.float32)
-        x = resize(x, input_size, input_size, "bilinear", channel_last=True)
-        depth = infer(preprocess_frames(x))               # [B, S', S']
-        depth = resize(depth, out_h, out_w, "bilinear")
-        d_min = depth.amin(dim=(1, 2), keepdim=True)
-        d_max = depth.amax(dim=(1, 2), keepdim=True)
-        norm = (depth - d_min) / torch.clamp(d_max - d_min, min=1e-12)
-        return torch.round(norm * max_val).to(out_dtype)
+        with span("depth", frames=frames_u8.shape[0],
+                  device=frames_u8.is_cuda):
+            x = frames_u8.to(torch.float32)
+            x = resize(x, input_size, input_size, "bilinear",
+                       channel_last=True)
+            depth = infer(preprocess_frames(x))               # [B, S', S']
+            depth = resize(depth, out_h, out_w, "bilinear")
+            d_min = depth.amin(dim=(1, 2), keepdim=True)
+            d_max = depth.amax(dim=(1, 2), keepdim=True)
+            norm = (depth - d_min) / torch.clamp(d_max - d_min, min=1e-12)
+            return torch.round(norm * max_val).to(out_dtype)
 
     @torch.inference_mode()
     def depth_fn(frames_u8):

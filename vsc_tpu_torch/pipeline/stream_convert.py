@@ -91,7 +91,7 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
                                              pad_to_multiple, shard_batch)
     from vsc_tpu_torch.pipeline import depth_map_generator
-    from vsc_tpu_torch.utils.profiling import Throughput, trace
+    from vsc_tpu_torch.utils.profiling import trace
 
     device = torch.device(device) if device is not None else default_device()
     input_video = get_path(workflow_path, config, "input_video")
@@ -143,7 +143,6 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
         frame_iter = decode_frames(input_video, W, H, start=resume_decode_from)
         pbar = tqdm(total=total, initial=done_upto, unit="frame",
                     mininterval=0.5)
-        meter = Throughput()
         frame_no = done_upto
         probe_every = max(1, -(-PROBE_EVERY_FRAMES // max(batch_size, 1)))
         batches_since_probe = 0
@@ -218,8 +217,6 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
                         last_sbs = sbs[-1:]
                         produced += n
                         pbar.update(n)
-                        meter.add(n)
-                        pbar.set_postfix_str(f"{meter.rate:.2f} fps")
                         if eof:
                             break
                 except AccelFailure:
