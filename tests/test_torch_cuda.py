@@ -1299,3 +1299,100 @@ def test_a_profiled_render_step_leaves_no_device_event_of_the_program(dev):
     parts = sum(x["device_ms"] for x in s
                 if x["name"] in ("depth.encoder", "depth.decoder"))
     assert 0 < parts < depth
+
+
+# ---- the copy out (parallel/auto.gather): into page-locked memory from
+# PyTorch's caching pinned allocator, owned by the caller
+
+def _gather_case(case, dev):
+    """A device result and what gather must give back for it."""
+    from vsc_tpu_torch.parallel.mesh import Sharded, make_mesh
+    x = _rand((8, 36, 70, 3), 91, dev)
+    if case == "u8":
+        x = (x * 255).to(torch.uint8)
+    elif case == "u16":
+        x = (x * 65535).to(torch.int32).to(torch.uint16)
+    elif case == "bf16":
+        x = x.to(torch.bfloat16)
+    elif case == "strided":
+        x = x.transpose(1, 2)               # not contiguous on the card
+    elif case == "sharded":
+        x = (x * 255).to(torch.uint8)
+        mesh = make_mesh(2, 1, devices=[dev, dev])
+        return Sharded(tuple(x.chunk(2)), mesh), x
+    return x, x
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8).cpu()
+
+
+@pytest.mark.parametrize("case", ["u8", "u16", "f32", "bf16", "strided",
+                                  "sharded"])
+def test_gather_is_pinned_and_byte_equal(dev, case):
+    from vsc_tpu_torch.parallel.auto import gather
+    result, want = _gather_case(case, dev)
+    got = gather(result)
+    assert got.device.type == "cpu" and got.is_pinned()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    assert torch.equal(_bytes(got), _bytes(want))
+
+
+def test_a_held_gather_result_keeps_its_bytes(dev):
+    """A result the caller holds is its own: later gathers of other data
+    (of the same size, which the allocator would hand the block of a
+    dropped result) leave it as it was."""
+    from vsc_tpu_torch.parallel.auto import gather
+    x = (_rand((4, 64, 96, 3), 92, dev) * 255).to(torch.uint8)
+    held = gather(x)
+    view = held.numpy()
+    want = x.cpu()
+    for k in range(3):
+        gather(x ^ (k + 1))
+        gather((255 - x) if k % 2 else x.flip(0))
+    x.zero_()
+    torch.cuda.synchronize()
+    assert torch.equal(held, want)
+    assert np.array_equal(view, want.numpy())
+
+
+def test_dropped_gather_results_reuse_pinned_blocks(dev):
+    """After one warm-up call, 20 gathers whose results are dropped grow
+    the pinned allocator by no block."""
+    from vsc_tpu_torch.parallel.auto import gather
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        pytest.skip("this torch has no torch.cuda.host_memory_stats")
+    x = (_rand((8, 54, 96, 3), 93, dev) * 255).to(torch.uint8)
+    gather(x)
+    before = stats()["num_host_alloc"]
+    for _ in range(20):
+        gather(x)
+    assert stats()["num_host_alloc"] == before
+
+
+def test_gather_counts_its_pinned_copies_while_tracing(dev):
+    """While tracing, transfer.pinned_out counts each gather of a device
+    result and transfer.pinned_out_bytes sums their bytes; untraced
+    gathers count nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsc_tpu_torch.parallel.auto import gather
+    from vsc_tpu_torch.utils import profiling
+    results = [_gather_case(c, dev)[0] for c in ("u8", "f32", "sharded")]
+    _cuda.reset_launches()
+    for r in results:
+        gather(r)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [gather(r) for r in results + results[:1]]
+    c = profiling.counters()
+    assert c["transfer.pinned_out"] == 4
+    assert c["transfer.pinned_out_bytes"] == sum(g.nbytes for g in got)
+    if hasattr(torch.cuda, "host_memory_stats"):
+        assert 0 <= c["transfer.host_alloc"] <= 4
+    else:
+        assert "transfer.host_alloc" not in c
+    _cuda.reset_launches()
+    assert profiling.counters() == {}

@@ -19,7 +19,8 @@ nowhere else, so a run can show that its main path went through them.
 the counters a kernel keeps on the card while tracing is on
 (``utils/profiling``): ``device_counter`` hands the kernel its int64
 counters, ``reset_launches`` drops them with the launch counts and
-``utils/profiling.counters`` reads them.
+``utils/profiling.counters`` reads them; ``HOST_COUNTS`` holds the host
+counters ``utils/profiling.count`` adds to, dropped with them.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0}
 DEVICE_COUNTERS = {"postprocess": ("fast_tiles", "hole_tiles")}
 COUNTER_SLOTS, COUNTER_STRIDE = 256, 4
 _COUNTER_TENSORS: dict = {}     # (group, CUDA device index) -> int64 tensor
+HOST_COUNTS: dict = {}          # "<group>.<field>" -> count (host counters)
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -110,6 +112,7 @@ def reset_launches() -> None:
         for k in counts:
             counts[k] = 0
     _COUNTER_TENSORS.clear()
+    HOST_COUNTS.clear()
 
 
 def device_counter(group: str, device):
