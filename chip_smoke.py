@@ -22,7 +22,11 @@ Drives the port's streaming main path on the card and checks it:
      pair's holes need, and the share of its tiles that take the hole path
      must lie strictly between 0 and 1, so both paths are checked); the
      attention past the qkv kernel's 640 tokens (DepthPro's 1025 at input
-     2048, and 4097), on the split kernel's two-pass route; then the
+     2048, and 4097), bf16 on the flash kernel and float32 on the split
+     kernel's two-pass route; the flash kernel at Depth Anything V2's
+     shape ([8, 2443, 3072], a 1080p batch of 8) against its plain version
+     in its own order and the full-row one, with the two-pass route's and
+     SDPA's flash backend's times; then the
      super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
      that size;
   3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
@@ -39,7 +43,7 @@ Drives the port's streaming main path on the card and checks it:
      under a bound that a deliberately broken deconv exceeds) and float32
      DepthPro (VSC_TPU_DEPTH_DTYPE=float32, the split-q/k/v attention);
      last one 1-frame batch of DepthPro at input 2048 (every attention on
-     the two-pass route), counters reset around it;
+     the flash kernel), counters reset around it;
   4. the CLI: ``stream_convert.run`` on a short synthetic clip, when the
      media engine and tqdm are present;
   5. the step workflow at 1080p through the step CLIs' ``main(argv)``, as a
@@ -128,7 +132,16 @@ Drives the port's streaming main path on the card and checks it:
      more at ``BENCH_DEPTH=stub BENCH_EXTRAS=0``, the SBS reading on its
      own (no attention launch). The oracle frames (CPU) are computed by
      the first run and read from the shared disk cache by the second;
-     their times are logged.
+     their times are logged;
+ 11. Depth Anything V2 Large (seed 0, bf16) on the convert path as the
+     streaming CLI runs it: ``build_depth_fn("depth-anything-v2")`` on the
+     one-card data mesh, 1080p batches of 8 through ``shard_batch``,
+     ``render_sbs`` and ``gather``; counters reset just before a batch: 24
+     flash launches (one a ViT block), no qkv or split-kernel launch, every
+     default SBS kernel; on a (1 x 1) data mesh the u8 depth equal to
+     the CLI path's; depth and SBS ms a frame, a batch end to end on the
+     main thread, on the CLI's dispatch thread and on a fresh thread each,
+     all again with cuDNN off, peak memory, one torch.profiler pass.
 
 Prints one JSON line of per-kernel results, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without printing a result
@@ -142,6 +155,7 @@ when there is no CUDA device or the port's sources are missing.
     python3 chip_smoke.py --phases 1,8      # build + the 4K main path
     python3 chip_smoke.py --phases 1,9      # build + the FOV head
     python3 chip_smoke.py --phases 1,10     # build + the bench
+    python3 chip_smoke.py --phases 1,11     # build + Depth Anything V2
 """
 
 from __future__ import annotations
@@ -161,6 +175,9 @@ REPO = Path(__file__).resolve().parent
 BATCH = 2        # frames per dispatch in the slice phase
 BATCHES = 8      # timed dispatches at the defaults, after one warm-up
 BATCHES_SS1 = 2  # dispatches of the shorter super_sampling 1 run
+DAV2_BATCH = 8   # phase 11 (and the flash check): the CLIs' batch
+DAV2_TOKENS = 2443   # Depth Anything V2 at 1080p: 37 x 66 patches + 1
+DAV2_BATCHES = 6     # phase 11: timed batches after one warm-up
 
 # (counter, route, source, replaced Pallas call)
 KERNELS = [
@@ -186,6 +203,10 @@ KERNELS = [
      "vsc_tpu/ops/deconv_pallas.py:106"),
     ("attention_split", "cuda", "vsc_tpu_torch/csrc/attention_split.cu",
      "vsc_tpu/ops/attention_pallas.py:185"),
+    # no Pallas site of its own: the JAX package runs every token count on
+    # qkv_short_seq_attention, whose route past 640 tokens this kernel takes
+    ("attention_flash", "cuda", "vsc_tpu_torch/csrc/attention_flash.cu",
+     "vsc_tpu/ops/attention_pallas.py:111"),
 ]
 
 def nbytes(*tensors) -> int:
@@ -953,21 +974,100 @@ def phase_depth_kernels(B: int):
             res["attention_split"] = r      # the float32 DepthPro's shape
         del qkv, q, k, v, o, o_p
     attention_two_pass(B)
+    res["attention_flash"] = flash_check(g)
     return res
+
+
+def flash_check(g) -> dict:
+    """The flash kernel at Depth Anything V2's shape: a batch of
+    ``DAV2_BATCH`` 1080p frames at 518 x 924, qkv [8, 2443, 3072] bf16 at
+    16 heads, through ``qkv_attention`` (which hands it to the flash
+    kernel), against its plain version in its own order
+    (``flash_attention_plain``: max 8e-3, mean 1e-5) and the full-row
+    plain version (``short_seq_attention_plain``, p rounded at the final
+    max, not the running one: max 8e-3, mean 1e-4), the bounds of
+    tests/test_torch_cuda.py::test_flash_attention_at_depth_anythings_shape.
+    Times: the kernel, both plain versions, the split kernel's two-pass
+    route on views of the same qkv, SDPA's flash backend; the bound is
+    ``frozen/dav2.flash_attention_bound``'s (4 N T^2 D operations at the
+    bf16 tensor peak, or q, k, v and the output at 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.attention_cuda import (flash_attention_plain,
+                                                  qkv_attention,
+                                                  short_seq_attention,
+                                                  short_seq_attention_plain)
+    from vsc_tpu_torch.utils.flops import least_time
+    N, T, H, Dh, scale = DAV2_BATCH, DAV2_TOKENS, 16, 64, 0.125
+    qkv = torch.randn((N, T, 3 * H * Dh), generator=g, device=g.device).to(
+        torch.bfloat16)
+    q, k, v = qkv.view(N, T, 3, H, Dh).unbind(2)
+    before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
+    o = qkv_attention(qkv, H, scale).float()
+    check(_cuda.LAUNCHES["attention_flash"]
+          == before[0]["attention_flash"] + 1
+          and _cuda.ROUTE_LAUNCHES["flash"] == before[1]["flash"] + 1
+          and _cuda.LAUNCHES["attention"] == before[0]["attention"]
+          and _cuda.LAUNCHES["attention_split"]
+          == before[0]["attention_split"],
+          f"[{N}, {T}] bf16 attention did not take the flash kernel alone")
+    d_own = (o - flash_attention_plain(qkv, H, scale).float()).abs()
+    d_row = (o - short_seq_attention_plain(q, k, v, scale).float().view(
+        N, T, -1)).abs()
+    err = float(torch.maximum(d_own.max(), d_row.max()))
+    own = (float(d_own.max()), float(d_own.mean()))
+    row = (float(d_row.max()), float(d_row.mean()))
+    del o, d_own, d_row
+    check(own[0] <= 8e-3 and own[1] <= 1e-5,
+          f"flash kernel vs its own order: max {own[0]}, mean {own[1]}")
+    check(row[0] <= 8e-3 and row[1] <= 1e-4,
+          f"flash kernel vs the full-row plain version: max {row[0]}, "
+          f"mean {row[1]}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa_flash():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    r = dict(max_abs_err=err, mean_abs_err=own[1], full_row_max_err=row[0],
+             full_row_mean_err=row[1],
+             ms=time_ms(lambda: qkv_attention(qkv, H, scale)),
+             plain_ms=time_ms(lambda: flash_attention_plain(qkv, H, scale),
+                              reps=2),
+             full_row_plain_ms=time_ms(lambda: short_seq_attention_plain(
+                 q, k, v, scale), reps=2),
+             two_pass_ms=time_ms(lambda: short_seq_attention(q, k, v,
+                                                             scale)),
+             library_ms=time_ms(sdpa_flash),
+             **least_time(nbytes(qkv) + nbytes(qkv) // 3,
+                          bf16_tensor=4.0 * N * T * T * H * Dh))
+    log(f"phase 2: attention_flash bf16 [{N}, {T}, {3 * H * Dh}] (Depth "
+        f"Anything V2 at 1080p): vs its own order max {own[0]:.3g}, mean "
+        f"{own[1]:.3g} [max 8e-3, mean 1e-5], vs the full row max "
+        f"{row[0]:.3g}, mean {row[1]:.3g} [max 8e-3, mean 1e-4]; kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms (full row "
+        f"{r['full_row_plain_ms']:.3f}), two-pass route "
+        f"{r['two_pass_ms']:.3f} ms, sdpa flash {r['library_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of it)")
+    del qkv, q, k, v, qt, kt, vt
+    return r
 
 
 def attention_two_pass(B: int) -> None:
     """Attention beyond the qkv kernel's 640 tokens: the token counts of
     DepthPro at input 2048 (tiles of 512: [36B, 1025] tokens) and 4096
-    (4097 tokens), through qkv_attention (bf16, on the split kernel's
-    two-pass route) and short_seq_attention (f32), against the plain
+    (4097 tokens), through qkv_attention (bf16, on the flash kernel,
+    against its plain version in its own order) and short_seq_attention
+    (f32, on the split kernel's two-pass route), against the plain
     versions, with SDPA's time beside them."""
     import torch
     from vsc_tpu_torch.utils.flops import least_time
     import torch.nn.functional as F
     from vsc_tpu_torch.ops import _cuda
-    from vsc_tpu_torch.ops.attention_cuda import (qkv_attention,
-                                                  qkv_attention_plain,
+    from vsc_tpu_torch.ops.attention_cuda import (flash_attention_plain,
+                                                  qkv_attention,
                                                   short_seq_attention,
                                                   short_seq_attention_plain)
     dev = torch.device("cuda")
@@ -982,8 +1082,8 @@ def attention_two_pass(B: int) -> None:
         bf16 = dtype == torch.bfloat16
         if bf16:
             fn = lambda: qkv_attention(qkv, H, scale)          # noqa: E731
-            o_p = qkv_attention_plain(qkv, H, scale).float()
-            plain = lambda: qkv_attention_plain(qkv, H, scale)  # noqa: E731
+            o_p = flash_attention_plain(qkv, H, scale).float()
+            plain = lambda: flash_attention_plain(qkv, H, scale)  # noqa: E731
         else:
             fn = lambda: short_seq_attention(q, k, v, scale)   # noqa: E731
             o_p = short_seq_attention_plain(q, k, v, scale).float()
@@ -991,9 +1091,9 @@ def attention_two_pass(B: int) -> None:
                 q, k, v, scale)
         before = dict(_cuda.ROUTE_LAUNCHES)
         o = fn().float()
-        check(_cuda.ROUTE_LAUNCHES["split_two_pass"]
-              == before["split_two_pass"] + 1,
-              f"attention at {T} tokens did not take the two-pass route")
+        route = "flash" if bf16 else "split_two_pass"
+        check(_cuda.ROUTE_LAUNCHES[route] == before[route] + 1,
+              f"attention at {T} tokens did not take the {route} route")
         err = float((o.reshape(o_p.shape) - o_p).abs().max())
         mean_err = float((o.reshape(o_p.shape) - o_p).abs().mean())
         del o, o_p
@@ -1008,7 +1108,7 @@ def attention_two_pass(B: int) -> None:
                                  {"f32": ops + 5.0 * T * T * N * H})))
         ok = (err <= 8e-3 and mean_err <= 1e-5) if bf16 else err <= 2e-5
         name = (f"{'qkv_attention' if bf16 else 'short_seq_attention'} "
-                f"{str(dtype)[6:]} [{N}, {T}, {3 * H * Dh}], two-pass route")
+                f"{str(dtype)[6:]} [{N}, {T}, {3 * H * Dh}], {route} route")
         log(f"phase 2: {name}: max_abs_err {err:.3g}, mean {mean_err:.3g} "
             f"[{'max 8e-3, mean 1e-5' if bf16 else 'max 2e-5'}], kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, sdpa "
@@ -1378,8 +1478,8 @@ def phase_slice(B: int, batches: int, card: str):
 def depth_2048(card: str) -> None:
     """One batch of one 1080p frame through full-width DepthPro at input
     2048 (tiles of 512: 1025 tokens, past the qkv kernel's 640, so every
-    attention takes the split kernel's two-pass route), counters reset just
-    before and read just after."""
+    attention takes the flash kernel), counters reset just before and read
+    just after."""
     import torch
     from vsc_tpu_torch.ops import _cuda
     from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
@@ -1400,8 +1500,9 @@ def depth_2048(card: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase 3: launches of one 1-frame batch at input 2048: {launches}; "
         f"split attention by route: {routes}")
-    check(launches["attention_split"] > 0 and launches["attention"] == 0
-          and routes["split_two_pass"] == launches["attention_split"],
+    check(launches["attention_flash"] > 0 and launches["attention"] == 0
+          and launches["attention_split"] == 0
+          and routes["flash"] == launches["attention_flash"],
           f"input 2048 attention: {launches} {routes}")
     check(tuple(depth.shape) == (1, 1080, 1920)
           and depth.dtype == torch.uint8
@@ -2437,7 +2538,8 @@ K4_STRIP = (120, 32)    # phase 8: the tier-1 strip's first row and rows
 # is odd, so the pools take the torch glue and the split route is refused
 K4_LAUNCHES = {"attention": 48, "blur": 1, "upsample": 2, "warp": 1,
                "pyramid": 1, "postprocess": 1, "finish": 1, "pool": 0,
-               "bilateral": 0, "deconv": 0, "attention_split": 0}
+               "bilateral": 0, "deconv": 0, "attention_split": 0,
+               "attention_flash": 0}
 
 
 def phase_4k_main(card: str) -> dict:
@@ -3025,9 +3127,140 @@ def phase_bench(card: str) -> dict:
     return {"kernels": rows, "launches": launches}
 
 
+def dispatch_thread_cost(step, batches) -> tuple[float, float, float]:
+    """Median ms of step(batch) over ``batches``, with its result in host
+    memory: on this thread, on the CLI's dispatch thread
+    (``parallel/health.run_with_deadline``, one thread kept across calls)
+    and on a fresh thread each, which rebuilds its per-thread state."""
+    import threading
+    from vsc_tpu_torch.parallel.health import run_with_deadline
+
+    def median_ms(call):
+        ts = []
+        for b in batches:
+            t0 = time.perf_counter()
+            call(b)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return sorted(ts)[len(ts) // 2]
+
+    def fresh(b):
+        t = threading.Thread(target=step, args=(b,))
+        t.start()
+        t.join()
+    return (median_ms(step),
+            median_ms(lambda b: run_with_deadline(lambda: step(b), 120.0)),
+            median_ms(fresh))
+
+
+def phase_dav2(card: str) -> dict:
+    """Phase 11: Depth Anything V2 Large (seed 0, bf16) on the
+    convert path as the streaming CLI runs it: ``build_depth_fn`` on
+    ``data_mesh`` of the card (none on a one-card machine), 1080p batches
+    of ``DAV2_BATCH`` through ``shard_batch``, ``render_sbs`` at
+    ``StereoParams()`` and ``gather``. Counters reset just before the
+    first counted batch and read just after: 24 flash launches a batch
+    (one a ViT block over the batch's 2,443-token rows) and no qkv or
+    split-kernel launch; every default SBS kernel. The model on a (1 x 1)
+    ``parallel/mesh`` data mesh of the card, given a ``Sharded`` batch,
+    returns a ``Sharded`` u8 depth equal to the CLI path's on the same
+    frames, bit for bit. Times: depth and SBS ms a frame (CUDA events),
+    a batch end to end (host clock) on the main thread, on the CLI's
+    dispatch thread and on a fresh thread each, all again with cuDNN off;
+    peak memory; one torch.profiler pass. Returns the launches of one
+    batch by kernel."""
+    import torch
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
+    from vsc_tpu_torch.parallel.auto import data_mesh, gather, shard_batch
+    from vsc_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from vsc_tpu_torch.pipeline.depth_map_generator import (DAV2,
+                                                            build_depth_fn)
+    from vsc_tpu_torch.pipeline.stream_convert import render_sbs
+    dev = torch.device("cuda")
+    B = DAV2_BATCH
+    torch.cuda.empty_cache()
+    mesh = data_mesh(dev)
+    one = make_mesh(data=1, devices=[dev])
+    t0 = time.perf_counter()
+    fn = build_depth_fn(DAV2, None, 1080, 1920, False, device=dev,
+                        mesh=mesh, seed=0)
+    mesh_fn = build_depth_fn(DAV2, None, 1080, 1920, False, mesh=one,
+                             seed=0)
+    torch.cuda.synchronize()
+    log(f"phase 11: Depth Anything V2 Large (seed 0, bf16) built twice in "
+        f"{time.perf_counter() - t0:.1f} s: the CLI's (data mesh "
+        f"{None if mesh is None else dict(mesh.shape)}) and on a "
+        f"{dict(one.shape)} mesh")
+    params = StereoParams()
+    host = [frames_u8(B, dev, 110 + i).cpu().numpy()
+            for i in range(DAV2_BATCHES)]
+
+    def step(frames):
+        return gather(render_sbs(shard_batch(frames, dev, mesh), fn, params))
+
+    step(host[0])                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    out = step(host[0])
+    launches, routes = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
+    log(f"phase 11: launches of one batch of {B}: {launches}; attention "
+        f"by route: {routes}")
+    check(launches["attention_flash"] == 24 and routes["flash"] == 24
+          and launches["attention"] == 0
+          and launches["attention_split"] == 0
+          and routes["split"] == routes["split_two_pass"] == 0,
+          f"Depth Anything V2 attention launches {launches} {routes}")
+    check(all(launches[k] > 0 for k in SBS_STEP_KERNELS),
+          f"Depth Anything V2 SBS launches {launches}")
+    check(tuple(out.shape) == (B, 1080, 3840, 3) and out.dtype == torch.uint8
+          and float(out.float().std()) > 1.0, f"SBS {tuple(out.shape)}")
+    x = torch.from_numpy(host[1]).to(dev)
+    sharded = mesh_fn(Sharded((x,), one))
+    check(isinstance(sharded, Sharded), f"mesh depth {type(sharded)}")
+    d_mesh = gather(sharded)
+    d_plain = gather(fn(shard_batch(host[1], dev, mesh)))
+    check(torch.equal(d_mesh, d_plain),
+          "the data mesh's depth differs from the CLI path's")
+    check(int(d_plain.max()) > int(d_plain.min()), "the depth is constant")
+    del mesh_fn, sharded
+    batch_s = []
+    for frames in host:
+        t0 = time.perf_counter()
+        step(frames)
+        batch_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the streaming CLI runs each batch on its dispatch thread
+    # (parallel/health.run_with_deadline); a fresh thread a batch rebuilds
+    # per-thread state, which cuDNN off (the convolutions on ATen's own
+    # kernels) tells apart
+    thread_ms = dispatch_thread_cost(step, host)
+    with torch.backends.cudnn.flags(enabled=False):
+        step(host[0])                                     # warm-up
+        no_cudnn_ms = dispatch_thread_cost(step, host)
+    log(f"phase 11: a batch, median of {len(host)}, on the main thread / "
+        f"the dispatch thread / a fresh thread each: "
+        + " / ".join(f"{t:.1f}" for t in thread_ms) + " ms; cuDNN off: "
+        + " / ".join(f"{t:.1f}" for t in no_cudnn_ms) + " ms")
+    t_depth = time_ms(lambda: fn(x), reps=3)
+    depth = d_plain.to(dev)
+    t_sbs = time_ms(lambda: generate_sbs(x, depth, params), reps=5)
+    med = sorted(batch_s)[len(batch_s) // 2]
+    log(f"phase 11: depth {t_depth / B:.2f} ms/frame, SBS {t_sbs / B:.2f} "
+        f"ms/frame (CUDA events); a batch end to end {1e3 * med:.1f} ms "
+        f"median of {len(batch_s)} ({B / med:.2f} frames/s, host clock, "
+        f"main thread); peak device memory {peak:.2f} GiB, on {card}")
+    log_profile(f"one Depth Anything V2 batch of {B}",
+                lambda: step(host[-1]), group=r"flash_attention_kernel",
+                phase=11)
+    del fn, x, d_mesh, d_plain, depth
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -3068,6 +3301,7 @@ def main(argv=None) -> int:
     k4 = phase_4k_main(card) if 8 in phases else {}
     fov = phase_fov(card) if 9 in phases else {}
     bench = phase_bench(card) if 10 in phases else {}
+    dav2 = phase_dav2(card) if 11 in phases else {}
     # where phase 3 ran not: the step path's, else the 4K path's, else the
     # FOV head's, else the bench's
     for name, n in {**bench.get("launches", {}), **fov,
@@ -3088,7 +3322,8 @@ def main(argv=None) -> int:
          "at_4k": k4.get("kernels", {}).get(name),
          "fov_launches": fov.get(name, 0),
          "bench_launches": bench.get("launches", {}).get(name, 0),
-         "at_bench_batch": bench.get("kernels", {}).get(name)}
+         "at_bench_batch": bench.get("kernels", {}).get(name),
+         "dav2_launches": dav2.get(name, 0)}
         for name, route, src, rep in KERNELS]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

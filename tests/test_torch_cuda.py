@@ -922,32 +922,38 @@ def test_split_attention_two_pass_dominant_key(dev, dtype):
 @pytest.mark.parametrize("N,T,H", [(3, 641, 2), (2, 1025, 16), (1, 1601, 3),
                                    (1, 4097, 1)])
 def test_attention_kernel_beyond_its_tokens(dev, N, T, H):
-    # qkv_attention past its own kernel's 640 keys: the split kernel's
-    # two-pass route on views of the same qkv, the qkv kernel not launched
+    # qkv_attention past its own kernel's 640 keys: the flash kernel on the
+    # same qkv, the qkv and split kernels not launched; against the plain
+    # version in the flash kernel's order (flash_attention_plain), with the
+    # qkv kernel's bounds
+    from vsc_tpu_torch.ops.attention_cuda import flash_attention_plain
     g = torch.Generator(dev).manual_seed(65 + T)
     qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
         torch.bfloat16)
     before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
     got = qkv_attention(qkv, H, 0.125).float()
     assert _cuda.LAUNCHES["attention"] == before[0]["attention"]
-    assert _cuda.LAUNCHES["attention_split"] == \
-        before[0]["attention_split"] + 1
-    assert _cuda.ROUTE_LAUNCHES["split_two_pass"] == \
-        before[1]["split_two_pass"] + 1
-    want = qkv_attention_plain(qkv, H, 0.125).float()
+    assert _cuda.LAUNCHES["attention_split"] == before[0]["attention_split"]
+    assert _cuda.LAUNCHES["attention_flash"] == \
+        before[0]["attention_flash"] + 1
+    assert _cuda.ROUTE_LAUNCHES["flash"] == before[1]["flash"] + 1
+    want = flash_attention_plain(qkv, H, 0.125).float()
     diff = (got - want).abs()
     assert float(diff.max()) <= 8e-3
     assert float(diff.mean()) <= 1e-5
 
 
 def test_attention_kernel_beyond_its_tokens_large_logits(dev):
-    # test_attention_kernel_large_logits at 1025 tokens
+    # test_attention_kernel_large_logits at 1025 tokens, on the flash
+    # kernel: a tile's max below the row's later max must rescale, not
+    # overflow
+    from vsc_tpu_torch.ops.attention_cuda import flash_attention_plain
     g = torch.Generator(dev).manual_seed(66)
     qkv = torch.randn((4, 1025, 3 * 2 * 64), generator=g, device=dev)
     qkv[..., :2 * 2 * 64] *= 30 ** 0.5
     qkv = qkv.to(torch.bfloat16)
     got = qkv_attention(qkv, 2, 0.125).float()
-    want = qkv_attention_plain(qkv, 2, 0.125).float()
+    want = flash_attention_plain(qkv, 2, 0.125).float()
     assert bool(torch.isfinite(got).all())
     vmax = float(qkv[..., 2 * 2 * 64:].float().abs().max())
     torch.testing.assert_close(got, want, rtol=8e-3, atol=2 ** -8 * vmax)
@@ -955,7 +961,9 @@ def test_attention_kernel_beyond_its_tokens_large_logits(dev):
 
 
 def test_attention_kernel_beyond_its_tokens_dominant_key(dev):
-    # test_attention_kernel_dominant_key at 1025 tokens
+    # test_attention_kernel_dominant_key at 1025 tokens, on the flash kernel
+    # (the dominant key in the last, the first and a middle tile)
+    from vsc_tpu_torch.ops.attention_cuda import flash_attention_plain
     N, T, H = 3, 1025, 2
     g = torch.Generator(dev).manual_seed(67)
     qkv = 0.1 * torch.randn((N, T, 3 * H * 64), generator=g, device=dev)
@@ -966,12 +974,115 @@ def test_attention_kernel_beyond_its_tokens_dominant_key(dev):
         qkv[n, j, D:2 * D] = 2.0
     qkv = qkv.to(torch.bfloat16)
     got = qkv_attention(qkv, H, 0.125).float()
-    want = qkv_attention_plain(qkv, H, 0.125).float()
+    want = flash_attention_plain(qkv, H, 0.125).float()
     diff = (got - want).abs()
     assert float(diff.max()) <= 8e-3 and float(diff.mean()) <= 1e-5
     for n, j in enumerate(keys):
         torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float()[
             None].expand(T, D), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("N,T,H", [(2, 641, 2), (1, 768, 3), (3, 1000, 1),
+                                   (2, 2443, 4), (1, 1, 1), (2, 191, 2),
+                                   (1, 385, 2)])
+def test_flash_attention_kernel_matches_plain(dev, N, T, H):
+    # ragged tails of the key tiles (128) and of the query blocks (192),
+    # one token, and Depth Anything V2's 2,443, called directly
+    from vsc_tpu_torch.ops.attention_cuda import (flash_attention,
+                                                  flash_attention_plain)
+    g = torch.Generator(dev).manual_seed(70 + T)
+    qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    before = _cuda.ROUTE_LAUNCHES["flash"]
+    got = flash_attention(qkv, H, 0.125)
+    assert _cuda.ROUTE_LAUNCHES["flash"] == before + 1
+    assert got.shape == (N, T, H * 64) and got.dtype == torch.bfloat16
+    diff = (got.float() - flash_attention_plain(qkv, H, 0.125).float()).abs()
+    assert float(diff.max()) <= 8e-3
+    assert float(diff.mean()) <= 1e-5
+
+
+def test_flash_attention_at_depth_anythings_shape(dev):
+    # [8, 2443, 16, 64]: a batch of 8 1080p frames at 518 x 924 through one
+    # ViT-L/14 block, against the full-row plain version
+    # (short_seq_attention_plain, p rounded at the final max): bf16's
+    # rounding of p at the running max moves the output by about 2^-9 of
+    # the v values over sqrt(T) keys, below one bf16 step of the output
+    # on average: max 8e-3 (the qkv kernel's bound), mean 1e-4
+    from vsc_tpu_torch.ops.attention_cuda import (flash_attention,
+                                                  flash_attention_plain,
+                                                  short_seq_attention_plain)
+    N, T, H = 8, 2443, 16
+    g = torch.Generator(dev).manual_seed(77)
+    qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    got = flash_attention(qkv, H, 0.125).float()
+    q, k, v = qkv.view(N, T, 3, H, 64).unbind(2)
+    want = short_seq_attention_plain(q, k, v, 0.125).float().view(N, T, -1)
+    diff = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert float(diff.max()) <= 8e-3
+    assert float(diff.mean()) <= 1e-4
+    same = (got - flash_attention_plain(qkv, H, 0.125).float()).abs()
+    assert float(same.max()) <= 8e-3 and float(same.mean()) <= 1e-5
+
+
+def test_depth_anything_on_the_card(dev, monkeypatch):
+    # a small Depth Anything V2 at head dim 64 with 677 tokens (52 x 52
+    # input, patch 2): bf16 runs every block's attention on the flash
+    # kernel; float32 on the split kernel, within 1 code of the plain
+    # reference (tests/plain_depth_anything_v2.py) on the card
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import plain_depth_anything_v2 as ref
+    from vsc_tpu_torch.models.depth_anything import DepthAnythingV2Config
+    from vsc_tpu_torch.models.vit import ViTConfig
+    from vsc_tpu_torch.pipeline import depth_map_generator as tdepth
+    cfg = DepthAnythingV2Config(
+        encoder=ViTConfig(img_size=12, patch_size=2, embed_dim=128, depth=4,
+                          num_heads=2, layerscale_init=1.0),
+        hook_block_ids=(0, 1, 2, 3), features=16,
+        out_channels=(8, 16, 32, 32), input_size=52)
+    rcfg = ref.DAv2Cfg(patch_size=2, pos_grid=6, embed_dim=128, depth=4,
+                       num_heads=2, hooks=(0, 1, 2, 3), features=16,
+                       out_channels=(8, 16, 32, 32), input_size=52)
+    with torch.device("meta"):
+        rmodel = ref.DepthAnythingV2(rcfg)
+    path = Path(__import__("tempfile").mkdtemp()) / "dav2.pth"
+    torch.save(ref.init_seeded(rmodel, 5), path)
+    model = ref.load_official(path, rcfg, dev)
+    g = torch.Generator(dev).manual_seed(78)
+    frames = torch.randint(0, 256, (2, 54, 54, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    want = ref.depth_u8(model, frames)
+    monkeypatch.setenv(tdepth.DTYPE_ENV, "float32")
+    fn = tdepth.build_depth_fn("depth-anything-v2", 52, 54, 54, False,
+                               checkpoint=str(path), device=dev,
+                               model_cfg=cfg)
+    assert int((fn(frames).int() - want.int()).abs().max()) <= 1
+    monkeypatch.setenv(tdepth.DTYPE_ENV, "bfloat16")
+    fn = tdepth.build_depth_fn("depth-anything-v2", 52, 54, 54, False,
+                               checkpoint=str(path), device=dev,
+                               model_cfg=cfg)
+    before = dict(_cuda.ROUTE_LAUNCHES), dict(_cuda.LAUNCHES)
+    got = fn(frames)
+    torch.cuda.synchronize()
+    assert _cuda.ROUTE_LAUNCHES["flash"] == before[0]["flash"] + 4
+    assert _cuda.LAUNCHES["attention"] == before[1]["attention"]
+    assert _cuda.LAUNCHES["attention_split"] == before[1]["attention_split"]
+    assert got.dtype == torch.uint8 and got.shape == (2, 54, 54)
+    assert int(got.max()) == 255 and int(got.min()) == 0
+    # a parallel/mesh data mesh of this one card: the same depth
+    from vsc_tpu_torch.parallel.auto import gather, shard_batch
+    from vsc_tpu_torch.parallel.mesh import Sharded, make_mesh
+    mesh = make_mesh(data=1, devices=[dev])
+    fn_mesh = tdepth.build_depth_fn("depth-anything-v2", 52, 54, 54, False,
+                                    checkpoint=str(path), mesh=mesh,
+                                    model_cfg=cfg)
+    batch = shard_batch(frames.cpu().numpy(), dev, mesh)
+    batch = batch if isinstance(batch, Sharded) else Sharded((batch,), mesh)
+    assert torch.equal(gather(fn_mesh(batch)), got.cpu())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

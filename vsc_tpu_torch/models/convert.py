@@ -30,6 +30,12 @@ matching shapes, or ``ConversionError`` is raised.
    projections stacked into one) and the rest through
    ``vsc_tpu/models/convert.py``'s ``_hf_mapping`` composed with Apple's.
 
+4. Depth Anything V2's official ``depth_anything_v2_vitl.pth``
+   (``depth_anything_v2_state_dict``): the port's module names are its keys
+   (``models/depth_anything.py``), less ``pretrained.mask_token``, which
+   is dropped; anything else missing, unexpected or of another shape
+   raises.
+
 ``convert_torch_checkpoint`` reads 2 and 3 (``.safetensors`` by
 ``read_safetensors``, which needs no ``safetensors`` package; ``.pt`` and
 ``.pth`` by ``torch.load(weights_only=True)``). The FOV head maps in all
@@ -63,7 +69,7 @@ import torch
 __all__ = ["ConversionError", "state_dict_from_jax", "load_jax_npz",
            "jax_flat_from_state_dict", "convert_state_dict",
            "convert_torch_checkpoint", "read_safetensors",
-           "interpolate_pos_embedding"]
+           "interpolate_pos_embedding", "depth_anything_v2_state_dict"]
 
 
 class ConversionError(RuntimeError):
@@ -535,3 +541,32 @@ def convert_torch_checkpoint(path, model) -> dict:
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]
     return convert_state_dict(state, model)
+
+
+def depth_anything_v2_state_dict(path, model) -> dict:
+    """An official Depth Anything V2 checkpoint (``.pth`` / ``.pt``, possibly
+    under "state_dict" or "model", or ``.safetensors``) -> the port model's
+    state_dict, in its dtypes: the keys are the model's own, less
+    ``IGNORED_KEYS`` (the mask token); anything missing, unexpected or of
+    another shape raises ``ConversionError``, naming the keys."""
+    from vsc_tpu_torch.models.depth_anything import IGNORED_KEYS
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(path)
+    if path.suffix == ".safetensors":
+        state = read_safetensors(path)
+    else:
+        # weights_only: never run pickled code from a downloaded file
+        state = torch.load(str(path), map_location="cpu", weights_only=True)
+    for wrap in ("state_dict", "model"):
+        if isinstance(state, dict) and isinstance(state.get(wrap), dict):
+            state = state[wrap]
+    own = model.state_dict()
+    state = {k: v for k, v in state.items() if k not in IGNORED_KEYS}
+    problems = [f"missing {k}" for k in own if k not in state]
+    problems += [f"unexpected {k}" for k in state if k not in own]
+    problems += [f"{k}: shape {tuple(state[k].shape)}, the model's "
+                 f"{tuple(v.shape)}" for k, v in own.items()
+                 if k in state and state[k].shape != v.shape]
+    _raise_if(problems, f"{path} as Depth Anything V2")
+    return {k: state[k].to(v.dtype) for k, v in own.items()}

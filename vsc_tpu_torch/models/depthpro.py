@@ -55,10 +55,11 @@ from torch import nn
 from vsc_tpu_torch.models.vit import ViT, ViTConfig
 from vsc_tpu_torch.ops.deconv_cuda import (deconv2x2, deconv2x2_supported,
                                            pack_weight)
+from vsc_tpu_torch.ops.resize import resize
 from vsc_tpu_torch.utils.profiling import span
 
 __all__ = ["DepthProConfig", "DepthPro", "ConvT2x2", "DECONV_ENV",
-           "preprocess_frames"]
+           "preprocess_frames", "model_input"]
 
 DECONV_ENV = "VSC_TPU_PALLAS_DECONV"
 
@@ -105,6 +106,14 @@ def preprocess_frames(rgb_u8):
     """uint8 [B, H, W, 3] RGB -> the model's input in [-1, 1]
     (x / 127.5 - 1, DepthPro's normalization), on the frames' device."""
     return rgb_u8.to(torch.float32) / 127.5 - 1.0
+
+
+def model_input(frames, size: int):
+    """float32 RGB frames [B, H, W, 3] on the 0-255 scale -> DepthPro's
+    input [B, size, size, 3]: a bilinear resize to the square, then
+    ``preprocess_frames``."""
+    return preprocess_frames(resize(frames, size, size, "bilinear",
+                                    channel_last=True))
 
 
 def _downscale2tap(x, factor: int):
@@ -374,6 +383,16 @@ class DepthPro(nn.Module):
             _conv(dd // 2, 32, 3), nn.ReLU(), _conv(32, 1, 1), nn.ReLU())
         if cfg.use_fov_head:
             self.fov = FOVNetwork(cfg)
+
+    def prepare(self, frames):
+        """float32 frames [B, H, W, 3] on the 0-255 scale -> the input
+        ``forward`` takes (``model_input`` at ``cfg.img_size``)."""
+        return model_input(frames, self.cfg.img_size)
+
+    def inverse_depth(self, images):
+        """The relative inverse depth [B, S', S'] of ``forward``'s input:
+        its "canonical_inverse_depth"."""
+        return self(images)["canonical_inverse_depth"]
 
     def forward(self, images):
         """images: [B, S, S, 3] in [-1, 1] -> {"canonical_inverse_depth":

@@ -6,17 +6,23 @@ Port of ``vsc_tpu/models/vit.py``: the DINOv2-style ViT-L/16 DepthPro uses
 as its patch, image and FOV encoders, as ``nn.Module``s named after timm's
 ViT (the keys of Apple's ``depth_pro.pt``): ``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.{norm1, attn.qkv, attn.proj,
-ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``.
+ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}``, ``norm``. The same
+module is Depth Anything V2's DINOv2 ViT-L/14 (``models/depth_anything.py``,
+the same names under ``pretrained.``): it takes any [H/p, W/p] token grid,
+and a grid other than its table's square one gets the table interpolated
+as DINOv2's ``interpolate_pos_encoding`` does (``pos_table``), once per
+grid; DepthPro's tiles match the table, which is then used as it is.
 
 The fused qkv projection keeps PyTorch's [q | k | v] row order; the
 attention kernels (ops/attention_cuda.py) read q, k and v out of it through
 strides: the qkv kernel for bf16 at head dim 64 up to 640 tokens (input
-1536), the split-q/k/v kernel for float32 (``VSC_TPU_DEPTH_DTYPE=float32``),
-other head dims and more tokens (input 2048 and up), as ``attention_route``
-decides (the JAX module's choice at
-``vsc_tpu/models/vit.py:185-221``). Matmuls are ``nn.Linear`` (the JAX
-package leaves them to XLA). The folded-LayerNorm variant of the JAX
-module is not ported.
+1536), the flash kernel for bf16 at head dim 64 beyond (DepthPro at input
+2048 and up, Depth Anything V2's 2,443 tokens), the split-q/k/v kernel for
+float32 (``VSC_TPU_DEPTH_DTYPE=float32``) and other head dims, as
+``attention_route`` decides (the JAX module's choice at
+``vsc_tpu/models/vit.py:185-221``, with the flash route added). Matmuls
+are ``nn.Linear`` (the JAX package leaves them to XLA). The
+folded-LayerNorm variant of the JAX module is not ported.
 
 Tensor and sequence parallelism (``vsc_tpu/models/vit.py:141-233``):
 ``parallel/sharding.shard_params`` gives every block of a replica its
@@ -43,14 +49,19 @@ import math
 import torch
 from torch import nn
 
-from vsc_tpu_torch.ops.attention_cuda import (attention_route, qkv_attention,
+from vsc_tpu_torch.ops.attention_cuda import (attention_route,
+                                              qkv_attention,
                                               short_seq_attention)
 from vsc_tpu_torch.parallel.collectives import (all_gather, all_reduce,
                                                 broadcast, gather_tokens,
                                                 reduce_scatter, split_tokens)
 from vsc_tpu_torch.parallel.mesh import on_device
 
-__all__ = ["ViTConfig", "ViT", "init_flax_like"]
+__all__ = ["ViTConfig", "ViT", "init_flax_like", "pos_table", "POS_OFFSET"]
+
+# DINOv2's ``interpolate_offset``: added to the target grid before the
+# scale factor of the table's bicubic resize
+POS_OFFSET = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +127,8 @@ class Attention(nn.Module):
         qkv = self.qkv(x)
         B, T, D3 = qkv.shape
         H, Dh = self.num_heads, D3 // (3 * self.num_heads)
-        if attention_route(qkv.dtype, Dh, T) == "qkv":
+        if attention_route(qkv.dtype, Dh, T) in ("qkv", "flash"):
+            # qkv_attention hands the flash route on itself
             return qkv_attention(qkv.contiguous(), H, self.scale)
         q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
         return short_seq_attention(q, k, v, self.scale).reshape(B, T, -1)
@@ -198,6 +210,26 @@ class PatchEmbed(nn.Module):
         return self.proj(x).flatten(2).transpose(1, 2)    # [B, T, D]
 
 
+def pos_table(pos, grid: int, rows: int, cols: int):
+    """The [1, 1 + grid^2, D] position table ``pos`` for a [rows, cols]
+    token grid, as DINOv2's ``interpolate_pos_encoding``: the cls entry as
+    it is, the grid in float32 through ``F.interpolate(scale_factor=((rows
+    + 0.1) / grid, (cols + 0.1) / grid), mode="bicubic", antialias=False)``
+    (the offset makes the output exactly [rows, cols]), cast back."""
+    D = pos.shape[-1]
+    pe = pos.float()
+    patch = pe[:, 1:].reshape(1, grid, grid, D).permute(0, 3, 1, 2)
+    patch = nn.functional.interpolate(
+        patch, scale_factor=((rows + POS_OFFSET) / grid,
+                             (cols + POS_OFFSET) / grid),
+        mode="bicubic", antialias=False)
+    if tuple(patch.shape[-2:]) != (rows, cols):
+        raise ValueError(f"position table: {tuple(patch.shape[-2:])} from "
+                         f"a {grid} x {grid} table, wanted {(rows, cols)}")
+    patch = patch.permute(0, 2, 3, 1).reshape(1, rows * cols, D)
+    return torch.cat([pe[:, :1], patch], dim=1).to(pos.dtype)
+
+
 class ViT(nn.Module):
     """Returns the final (normed) tokens and the outputs of the hooked
     blocks; cls token first."""
@@ -212,18 +244,36 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.num_patches, D))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=1e-6)
+        self._pos = {}      # (rows, cols) -> (the table's state, its table)
+
+    def pos_for(self, rows: int, cols: int):
+        """The position table for a [rows, cols] token grid: ``pos_embed``
+        itself on the table's own grid, else ``pos_table``'s, kept until
+        the table changes (its version, storage, dtype or device)."""
+        g, pe = self.cfg.grid_size, self.pos_embed
+        if (rows, cols) == (g, g):
+            return pe
+        key = (pe._version, pe.data_ptr(), pe.dtype, pe.device,
+               torch.is_inference_mode_enabled())
+        hit = self._pos.get((rows, cols))
+        if hit is None or hit[0] != key:
+            hit = self._pos[(rows, cols)] = (key, pos_table(pe, g, rows,
+                                                            cols))
+        return hit[1]
 
     def forward(self, images, hook_batch: int | None = None):
-        """images: [B, 3, h, w] in the model's input scale. ``hook_batch``
-        keeps only the first rows of each hooked block output (DepthPro
-        needs the fine tiles' hooks alone); it must not exceed B."""
+        """images: [B, 3, h, w] in the model's input scale, h and w
+        multiples of the patch size. ``hook_batch`` keeps only the first
+        rows of each hooked block output (DepthPro needs the fine tiles'
+        hooks alone); it must not exceed B."""
         B = images.shape[0]
         if hook_batch is not None and hook_batch > B:
             raise ValueError(f"hook_batch {hook_batch} exceeds the "
                              f"{B} rows of the batch")
+        p = self.cfg.patch_size
         x = self.patch_embed(images)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = x + self.pos_embed
+        x = x + self.pos_for(images.shape[-2] // p, images.shape[-1] // p)
         if len(self.blocks) and self.blocks[0].ranks is not None:
             return self._forward_sharded(x, hook_batch)
         hooks = {}
@@ -270,7 +320,9 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
     xavier-uniform for the ViT's Linear and the patch conv, lecun-normal for
     other convs, transposed convs and the FOV encoder's Linear (a flax
     default Dense), zero biases, LayerNorm (1, 0), LayerScale at its init
-    value, cls token 0, pos_embed N(0, 0.02)."""
+    value, cls token 0, pos_embed N(0, 0.02). Depth Anything V2's head has
+    ``nn.ConvTranspose2d`` layers (4 x 4 and 2 x 2): lecun-normal with a
+    fan-in of kh * kw * Cin, as a flax ConvTranspose's."""
     from vsc_tpu_torch.models.depthpro import ConvT2x2
     for name, m in module.named_modules():
         if name.endswith("fov.encoder.1"):
@@ -280,6 +332,8 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.xavier_uniform_(m.weight, generator=generator)
         elif isinstance(m, nn.Conv2d):
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+        elif isinstance(m, nn.ConvTranspose2d):
+            _lecun_normal_(m.weight, m.weight[:, 0].numel(), generator)
         elif isinstance(m, ConvT2x2):
             # flax kernel [kh, kw, I, O]: fan_in = kh * kw * I
             _lecun_normal_(m.weight, m.weight.shape[0] * m.weight[0, 0].numel(),

@@ -15,7 +15,8 @@ turns anything else into a RuntimeError. ``LAUNCHES`` counts launches per
 kernel: each wrapper adds one right where it launches its kernel and
 nowhere else, so a run can show that its main path went through them.
 ``ROUTE_LAUNCHES`` counts the split attention kernel's launches by route
-(``ops/attention_cuda.split_route``'s names). ``DEVICE_COUNTERS`` names
+(``ops/attention_cuda.split_route``'s names) and the flash attention
+kernel's as "flash". ``DEVICE_COUNTERS`` names
 the counters a kernel keeps on the card while tracing is on
 (``utils/profiling``): ``device_counter`` hands the kernel its int64
 counters, ``reset_launches`` drops them with the launch counts and
@@ -46,8 +47,9 @@ NVCC_TIMEOUT = 600.0
 
 LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
             "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
-            "bilateral": 0, "deconv": 0, "attention_split": 0}
-ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0}
+            "bilateral": 0, "deconv": 0, "attention_split": 0,
+            "attention_flash": 0}
+ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0, "flash": 0}
 # group -> the fields of its counters, in the kernel's order. A group's
 # counters are COUNTER_SLOTS slots of COUNTER_STRIDE int64 (a 32-byte
 # sector a slot) that the kernel's blocks add to in turn, so that their
@@ -80,6 +82,8 @@ _SIGNATURES = {
     "vsc_postprocess": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # qkv, out, N, T, heads, scale, stream
     "vsc_qkv_attention": [_P, _P, _I, _I, _I, _F, _P],
+    # qkv, out, N, T, heads, scale, stream
+    "vsc_flash_attention": [_P, _P, _I, _I, _I, _F, _P],
     # x, out, wa(host), wb(host), N, H, W, f, quantize_u8, stream
     "vsc_upsample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # eye4 u8, out f32, B, H, W, f, stream

@@ -11,6 +11,11 @@ are copied rather than imported, because importing anything under
   lanczos4  cv2 INTER_LANCZOS4, weights on cv2's 1/2048 fixed-point grid
   bilinear  F.interpolate(bilinear, align_corners=False) == cv2 INTER_LINEAR
   area      F.interpolate(area) == adaptive average pooling
+  cubic     cv2 INTER_CUBIC on a float image: Keys' cubic with a = -0.75,
+            4 taps at the half-pixel source position (no widening when it
+            shrinks), the edge pixel replicated past the border, the
+            weights in float32 as cv2 computes them (Depth Anything V2's
+            input resize; not in the JAX package, which has no such model)
 
 Integer-factor bilinear upsampling and integer-factor area downscaling take
 the same phase-decomposition / reshape-mean forms as the reference, so the
@@ -66,6 +71,25 @@ def _bilinear_taps(src: int, dst: int):
     return idx, wgt
 
 
+def _cubic_taps(src: int, dst: int):
+    """cv2's INTER_CUBIC table (``interpolateCubic``): the source position
+    (o + 0.5) * scale - 0.5 in float32 with scale = 1 / (dst / src) in
+    double, its floor sx, taps sx - 1 .. sx + 2 clamped to the image."""
+    scale = 1.0 / (dst / src)
+    fx = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    sx = np.floor(fx)
+    x = (fx - sx).astype(np.float32)
+    a, one = np.float32(-0.75), np.float32(1.0)
+    x1, y = x + one, one - x
+    w = np.empty((dst, 4), np.float32)
+    w[:, 0] = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
+    w[:, 1] = ((a + 2) * x - (a + 3)) * x * x + one
+    w[:, 2] = ((a + 2) * y - (a + 3)) * y * y + one
+    w[:, 3] = one - w[:, 0] - w[:, 1] - w[:, 2]
+    idx = np.clip(sx.astype(np.int64)[:, None] + np.arange(-1, 3), 0, src - 1)
+    return idx.astype(np.int32), w
+
+
 def _area_taps(src: int, dst: int):
     """Output o averages [floor(o*src/dst), ceil((o+1)*src/dst)); narrower
     windows zero-pad their trailing taps."""
@@ -85,6 +109,7 @@ _BUILDERS = {
     "lanczos4": _lanczos4_taps,
     "bilinear": _bilinear_taps,
     "area": _area_taps,
+    "cubic": _cubic_taps,
 }
 
 

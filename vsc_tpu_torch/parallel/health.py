@@ -12,7 +12,9 @@ retry). ``torch.cuda.synchronize`` takes the place of the JAX sync.
 from __future__ import annotations
 
 import contextvars
+import functools
 import os
+import queue
 import threading
 
 import torch
@@ -37,27 +39,53 @@ def _run_probe(device) -> bool:
     return abs(float(result) - 12.0) < 1e-3
 
 
+class _Dispatcher:
+    """One daemon thread that runs the calls put on its queue, in turn.
+    It lives across calls, so its per-thread state (PyTorch's cuDNN
+    execution plans are cached per thread) is built once, not once a
+    batch."""
+
+    def __init__(self):
+        self.jobs: queue.SimpleQueue = queue.SimpleQueue()
+        threading.Thread(target=self._serve, daemon=True,
+                         name="vsc-dispatch").start()
+
+    def _serve(self):
+        while True:
+            self.jobs.get()()
+
+
+_dispatchers = threading.local()
+
+
 def run_with_deadline(fn, timeout: float):
-    """Run ``fn()`` on a daemon thread; its value, or TimeoutError once the
-    deadline passes (the wedged thread is abandoned so the caller can still
-    exit 100). Exceptions from ``fn`` propagate unchanged. The thread runs
-    in a copy of the caller's context, so the spans ``fn`` records
-    (``utils/profiling``) have the caller's "dispatch" span as parent."""
+    """Run ``fn()`` on the caller's dispatch thread (a daemon thread each
+    calling thread keeps for its calls); its value, or TimeoutError once
+    the deadline passes (the wedged thread is abandoned, and the next call
+    starts a fresh one, so the caller can still exit 100). Exceptions from
+    ``fn`` propagate unchanged. ``fn`` runs in a copy of the caller's
+    context, so the spans it records (``utils/profiling``) have the
+    caller's "dispatch" span as parent."""
     out: list = []
     err: list = []
+    done = threading.Event()
 
-    def worker():
+    def job(ctx):
         try:
-            out.append(fn())
+            out.append(ctx.run(fn))
         except BaseException as e:  # noqa: BLE001 — re-raised on the caller
             err.append(e)
+        finally:
+            done.set()
 
     with span("dispatch"):
-        t = threading.Thread(target=contextvars.copy_context().run,
-                             args=(worker,), daemon=True, name="vsc-dispatch")
-        t.start()
-        t.join(timeout)
-    if t.is_alive():
+        worker = getattr(_dispatchers, "worker", None)
+        if worker is None:
+            worker = _dispatchers.worker = _Dispatcher()
+        worker.jobs.put(functools.partial(job, contextvars.copy_context()))
+        finished = done.wait(timeout)
+    if not finished:
+        _dispatchers.worker = None
         raise TimeoutError(
             f"device dispatch exceeded its {timeout:.0f}s deadline")
     if err:

@@ -4,14 +4,24 @@ Step 2 — depth map generation (PyTorch)
 
 Port of ``vsc_tpu/pipeline/depth_map_generator.py``.
 
-``build_depth_fn``: resize the frames to the model size (bilinear),
-normalize to [-1, 1], run the model, resize the depth back to the frame
-size, then per-frame min-max normalize and quantize to u8/u16 — all on the
-frames' device. The streaming converter calls it too.
+``build_depth_fn``: turn the frames into the model's input (the model's
+own ``prepare``), run it (``inverse_depth``), resize the depth back to
+the frame size (bilinear), then per-frame min-max normalize and quantize
+to u8/u16 — all on the frames' device. The streaming converter calls it
+too. Two models: "depthpro" (the JAX package's: a bilinear resize to the
+square input, normalized to [-1, 1]; the stub takes the same input) and
+"depth-anything-v2" (Depth Anything V2 Large,
+``models/depth_anything.py``, the port's own: cv2's INTER_CUBIC taps to
+the aspect-kept lower bound of ``--input-size`` in multiples of 14, 518 x
+924 at 1080p, ImageNet-normalized); the way back is the same.
 
 ``run`` / ``main``: the step CLI, with the JAX package's flags
 (``--cpu``, ``--start-frame`` / ``--end-frame``, ``--no-interactive``,
-``--batch-size``, ``--model``, ``--input-size``), resume rule (skip frames
+``--batch-size``, ``--model``, ``--input-size``; ``--model`` also takes
+"depth-anything-v2", with its weights from ``VSC_TPU_DAV2_CHECKPOINT`` (the
+official ``depth_anything_v2_vitl.pth`` key layout; without it the CLIs
+stop with an error, as no cache or hub holds them); ``--input-size``
+defaults to the model's own, 1536 or 518), resume rule (skip frames
 whose output exists), ragged last batch padded to the full batch, and
 output (8-bit PNG or 16-bit deflate TIFF, read back and deleted when
 corrupt), through the loader / compute / saver threads of
@@ -44,6 +54,7 @@ None means ``vsc_tpu_torch.default_device()``, which raises without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from pathlib import Path
@@ -52,12 +63,39 @@ import torch
 
 from vsc_tpu_torch.config import ConfigError, get_path, load_config
 
-__all__ = ["build_depth_fn", "build_depthpro", "depth_dtype", "run", "main",
-           "CHECKPOINT_ENV", "DTYPE_ENV", "DEFAULT_BATCH"]
+__all__ = ["build_depth_fn", "build_depthpro", "build_depth_anything",
+           "depth_dtype", "model_checkpoint", "run",
+           "main", "CHECKPOINT_ENV", "DAV2_CHECKPOINT_ENV", "DTYPE_ENV",
+           "DEFAULT_BATCH", "MODELS", "DAV2", "LuminanceStub"]
 
 DEFAULT_BATCH = 8
 CHECKPOINT_ENV = "VSC_TPU_DEPTH_CHECKPOINT"
+DAV2_CHECKPOINT_ENV = "VSC_TPU_DAV2_CHECKPOINT"
 DTYPE_ENV = "VSC_TPU_DEPTH_DTYPE"
+DAV2 = "depth-anything-v2"
+MODELS = ("depthpro", DAV2, "stub")       # the CLIs' --model choices
+
+
+def model_checkpoint(model_name: str | None) -> str | None:
+    """The checkpoint the CLIs load for ``--model model_name``: for the
+    stub ``VSC_TPU_DEPTH_CHECKPOINT`` alone; for Depth Anything V2
+    ``VSC_TPU_DAV2_CHECKPOINT``, else ConfigError (no cache or hub holds
+    its weights, and a user's video is not converted with seeded ones);
+    else DepthPro's in the JAX package's order, env, then the npz cache,
+    then the hub (``models/bootstrap.resolve_checkpoint``), None when all
+    fail."""
+    if model_name == "stub":
+        return os.environ.get(CHECKPOINT_ENV)
+    if model_name == DAV2:
+        path = os.environ.get(DAV2_CHECKPOINT_ENV)
+        if not path:
+            raise ConfigError(
+                f"--model {DAV2} needs its weights: set "
+                f"${DAV2_CHECKPOINT_ENV} to the official "
+                "depth_anything_v2_vitl.pth")
+        return path
+    from vsc_tpu_torch.models.bootstrap import resolve_checkpoint
+    return resolve_checkpoint()
 
 
 def depth_dtype(device) -> torch.dtype:
@@ -70,13 +108,13 @@ def depth_dtype(device) -> torch.dtype:
     return torch.bfloat16 if want == "bfloat16" else torch.float32
 
 
-def build_depthpro(input_size: int, device=None, *, cfg=None,
+def build_depthpro(input_size: int | None = None, device=None, *, cfg=None,
                    checkpoint: str | None = None, seed: int = 0):
     """A DepthPro on ``device`` (None: ``default_device()``) in eval mode,
-    in ``depth_dtype(device)``: production width at ``input_size`` unless
-    ``cfg`` is given; weights from ``checkpoint`` (``.pt``, ``.pth`` or
-    ``.safetensors`` converted, a hub download then cached as npz; any
-    other file read as a JAX npz) or drawn from
+    in ``depth_dtype(device)``: production width at ``input_size`` (None:
+    1536) unless ``cfg`` is given; weights from ``checkpoint`` (``.pt``,
+    ``.pth`` or ``.safetensors`` converted, a hub download then cached as
+    npz; any other file read as a JAX npz) or drawn from
     ``torch.Generator(device).manual_seed(seed)``."""
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.models import (DepthPro, DepthProConfig, ViTConfig,
@@ -84,6 +122,7 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
     if device is None:
         device = default_device()
     if cfg is None:
+        input_size = input_size or DepthProConfig().img_size
         if input_size % 512 != 0:
             raise ValueError(
                 "DepthPro input size must be a multiple of 512 (tile = "
@@ -112,13 +151,70 @@ def build_depthpro(input_size: int, device=None, *, cfg=None,
     return model.to(depth_dtype(device)).eval()
 
 
-def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
-                   use_16bit: bool, checkpoint: str | None = None, *,
-                   device=None, model_cfg=None, seed: int = 0, mesh=None):
+def build_depth_anything(device=None, *, input_size: int | None = None,
+                         cfg=None, checkpoint: str | None = None,
+                         seed: int = 0):
+    """A Depth Anything V2 on ``device`` (None: ``default_device()``) in
+    eval mode, in ``depth_dtype(device)``: Large at ``input_size`` (None:
+    518) unless ``cfg`` is given; weights from ``checkpoint`` (the official
+    key layout,
+    ``models/convert.depth_anything_v2_state_dict``) or drawn from
+    ``torch.Generator(device).manual_seed(seed)`` by the flax laws of
+    ``init_flax_like``, the head's last 1x1 convolution made non-negative
+    (its input is a ReLU's: the depth is then >= 0 and not clipped to 0 by
+    the final ReLUs, as a trained model's)."""
+    from vsc_tpu_torch import default_device
+    from vsc_tpu_torch.models import init_flax_like
+    from vsc_tpu_torch.models.depth_anything import (DepthAnythingV2,
+                                                     DepthAnythingV2Config)
+    device = torch.device(device if device is not None
+                          else default_device())
+    if cfg is None:
+        cfg = DepthAnythingV2Config()
+        if input_size:
+            cfg = dataclasses.replace(cfg, input_size=input_size)
+    with device:
+        model = DepthAnythingV2(cfg)
+    if checkpoint:
+        from vsc_tpu_torch.models.convert import depth_anything_v2_state_dict
+        model.load_state_dict(depth_anything_v2_state_dict(checkpoint, model),
+                              strict=True)
+    else:
+        init_flax_like(model, torch.Generator(device).manual_seed(seed))
+        with torch.no_grad():
+            model.depth_head.scratch.output_conv2[2].weight.abs_()
+    return model.to(depth_dtype(device)).eval()
+
+
+class LuminanceStub:
+    """The luminance stub (``models/stub.luminance_depth``) behind
+    DepthPro's input rule at ``input_size``: ``prepare`` and
+    ``inverse_depth`` as the models have them."""
+
+    def __init__(self, input_size: int):
+        self.input_size = input_size
+
+    def prepare(self, frames):
+        from vsc_tpu_torch.models.depthpro import model_input
+        return model_input(frames, self.input_size)
+
+    def inverse_depth(self, images):
+        from vsc_tpu_torch.models.stub import luminance_depth
+        return luminance_depth(images)
+
+
+def build_depth_fn(model_name: str, input_size: int | None, out_h: int,
+                   out_w: int, use_16bit: bool,
+                   checkpoint: str | None = None, *, device=None,
+                   model_cfg=None, seed: int = 0, mesh=None):
     """Returns f(u8 frames [B, H, W, 3] tensor on ``device``) -> quantized
     depth [B, out_h, out_w] (uint8, or uint16 with ``use_16bit``).
     ``device`` None means ``default_device()`` (the card, or an error).
-    ``model_cfg`` overrides the DepthPro config (tests run a small one).
+    ``model_name``: "depthpro", "depth-anything-v2" (``input_size`` the
+    lower bound of its aspect-kept input) or "stub"; ``input_size`` None
+    means the model's own (1536, 518; the stub 1536). ``model_cfg``
+    overrides the model's config (tests run a small one); its input size
+    then wins over ``input_size``.
 
     With a ``mesh`` (``parallel/mesh``) the model is built once, on the
     mesh's first device, and ``parallel/sharding.shard_params`` places one
@@ -128,7 +224,6 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     runs each shard on its own row and returns a ``Sharded`` depth that
     ``generate_sbs`` takes; a plain tensor runs on the first row."""
     from vsc_tpu_torch import default_device
-    from vsc_tpu_torch.models.depthpro import preprocess_frames
     from vsc_tpu_torch.ops.resize import resize
     from vsc_tpu_torch.parallel.mesh import Sharded, on_device
     from vsc_tpu_torch.utils.profiling import span
@@ -139,35 +234,34 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
         device = default_device()
 
     if model_name == "depthpro":
-        if model_cfg is not None:
-            input_size = model_cfg.img_size
         model = build_depthpro(input_size, device, cfg=model_cfg,
                                checkpoint=checkpoint, seed=seed)
-        if mesh is not None:
-            from vsc_tpu_torch.parallel.sharding import shard_params
-            models = shard_params(model, mesh)
-            del model
-        else:
-            models = [model]
-        infers = [lambda x, m=m: m(x)["canonical_inverse_depth"]
-                  for m in models]
+    elif model_name == DAV2:
+        model = build_depth_anything(device, input_size=input_size,
+                                     cfg=model_cfg, checkpoint=checkpoint,
+                                     seed=seed)
     elif model_name == "stub":
-        from vsc_tpu_torch.models.stub import luminance_depth
-        infers = [luminance_depth] * (1 if mesh is None
-                                      else mesh.shape["data"])
+        from vsc_tpu_torch.models.depthpro import DepthProConfig
+        model = LuminanceStub(input_size or DepthProConfig().img_size)
     else:
         raise ValueError(f"unknown depth model: {model_name}")
+    if mesh is None:
+        models = [model]
+    elif isinstance(model, LuminanceStub):
+        models = [model] * mesh.shape["data"]
+    else:
+        from vsc_tpu_torch.parallel.sharding import shard_params
+        models = shard_params(model, mesh)
+        del model
 
     max_val = 65535.0 if use_16bit else 255.0
     out_dtype = torch.uint16 if use_16bit else torch.uint8
 
-    def one(infer, frames_u8):
+    def one(model, frames_u8):
         with span("depth", frames=frames_u8.shape[0],
                   device=frames_u8.is_cuda):
-            x = frames_u8.to(torch.float32)
-            x = resize(x, input_size, input_size, "bilinear",
-                       channel_last=True)
-            depth = infer(preprocess_frames(x))               # [B, S', S']
+            x = model.prepare(frames_u8.to(torch.float32))
+            depth = model.inverse_depth(x)                     # [B, h, w]
             depth = resize(depth, out_h, out_w, "bilinear")
             d_min = depth.amin(dim=(1, 2), keepdim=True)
             d_max = depth.amax(dim=(1, 2), keepdim=True)
@@ -177,15 +271,15 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
     @torch.inference_mode()
     def depth_fn(frames_u8):
         if not isinstance(frames_u8, Sharded):
-            return one(infers[0], frames_u8)
+            return one(models[0], frames_u8)
         if frames_u8.mesh != mesh:
             raise ValueError("depth_fn: the batch lies on another mesh than "
                              "the model")
         parts = []
-        for infer, part, dev in zip(infers, frames_u8.parts,
+        for model, part, dev in zip(models, frames_u8.parts,
                                     mesh.data_devices):
             with on_device(dev):
-                parts.append(one(infer, part))
+                parts.append(one(model, part))
         return Sharded(tuple(parts), mesh)
 
     return depth_fn
@@ -193,7 +287,7 @@ def build_depth_fn(model_name: str, input_size: int, out_h: int, out_w: int,
 
 def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
         batch_size=DEFAULT_BATCH, interactive=True,
-        model_name: str | None = None, input_size: int = 1536,
+        model_name: str | None = None, input_size: int | None = None,
         device=None) -> bool:
     """The depth step over the workflow's frames on ``device`` (None:
     ``default_device()``). Returns success."""
@@ -203,7 +297,6 @@ def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.io.image import read_rgb, write_quantized_depth
     from vsc_tpu_torch.io.prefetch import SaveError, run_pipeline
-    from vsc_tpu_torch.models.bootstrap import resolve_checkpoint
     from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
                                              pad_to_multiple, shard_batch)
     from vsc_tpu_torch.utils.frame_utils import extract_frame_number
@@ -247,10 +340,13 @@ def run(workflow_path: Path, config: dict, *, start_frame=None, end_frame=None,
         print(f"ERROR: cannot read {todo[0][0]}")
         return False
 
-    # the JAX package's order: env, then the npz cache, then the hub; only
-    # when all fail does the stub (explicitly labeled) take over
-    checkpoint = (os.environ.get(CHECKPOINT_ENV) if model_name == "stub"
-                  else resolve_checkpoint())
+    # only when DepthPro's checkpoint is not found does the stub
+    # (explicitly labeled) take over
+    try:
+        checkpoint = model_checkpoint(model_name)
+    except ConfigError as e:
+        print(f"ERROR: {e}")
+        return False
     if model_name is None:
         model_name = "depthpro" if checkpoint else "stub"
     if model_name == "stub":
@@ -317,11 +413,13 @@ def main(argv=None) -> int:
                         help="Run on the CPU (default: the card)")
     parser.add_argument("--no-interactive", action="store_true")
     parser.add_argument("--batch-size", type=int, default=DEFAULT_BATCH)
-    parser.add_argument("--model", choices=("depthpro", "stub"), default=None,
+    parser.add_argument("--model", choices=MODELS, default=None,
                         help="Depth model (default: depthpro with checkpoint, "
                              "else stub)")
-    parser.add_argument("--input-size", type=int, default=1536,
-                        help="Model input resolution (reference: 1536)")
+    parser.add_argument("--input-size", type=int, default=None,
+                        help="Model input resolution (default: the model's "
+                             "own, 1536 for DepthPro, 518 for "
+                             "depth-anything-v2)")
     args = parser.parse_args(argv)
 
     from vsc_tpu_torch import cli_device

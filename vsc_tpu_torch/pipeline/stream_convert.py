@@ -2,8 +2,9 @@
 Streaming converter (PyTorch / CUDA)
 ====================================
 
-Port of ``vsc_tpu/pipeline/stream_convert.py``: decode -> depth (DepthPro
-or the stub) -> SBS -> x265 chunk encode in one process with no PNG
+Port of ``vsc_tpu/pipeline/stream_convert.py``: decode -> depth (DepthPro,
+Depth Anything V2 with ``--model depth-anything-v2``, or the stub) -> SBS
+-> x265 chunk encode in one process with no PNG
 intermediates, with the same flags, chunk naming (1-frame overlap after the
 first chunk), chunk-granular resume, free-space rules and exit-100
 accelerator-failure contract. Decoding, encoding and concatenation run on
@@ -78,7 +79,8 @@ def _free_space_cleanup(workflow_path: Path, config: dict, upto: int) -> None:
 
 def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
         chunk_size: int = 1500, model_name: str | None = None,
-        input_size: int = 1536, concat: bool = True, device=None) -> bool:
+        input_size: int | None = None, concat: bool = True,
+        device=None) -> bool:
     import numpy as np
     import torch
     from tqdm import tqdm
@@ -111,10 +113,11 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     if done_upto >= total > 0:
         print("All frames already encoded into chunks.")
     else:
-        # the JAX package's order: env, then the npz cache, then the hub
-        from vsc_tpu_torch.models.bootstrap import resolve_checkpoint
-        checkpoint = (os.environ.get(depth_map_generator.CHECKPOINT_ENV)
-                      if model_name == "stub" else resolve_checkpoint())
+        try:
+            checkpoint = depth_map_generator.model_checkpoint(model_name)
+        except ConfigError as e:
+            print(f"ERROR: {e}")
+            return False
         if model_name is None:
             model_name = "depthpro" if checkpoint else "stub"
         params = StereoParams.from_config(config["stereo"])
@@ -252,6 +255,7 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
 
 
 def main(argv=None) -> int:
+    from vsc_tpu_torch.pipeline import depth_map_generator
     parser = argparse.ArgumentParser(
         description="Streaming video->stereo conversion on PyTorch/CUDA "
                     "(no PNG intermediates)")
@@ -259,8 +263,12 @@ def main(argv=None) -> int:
     parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--chunk-size", type=int, default=1500)
-    parser.add_argument("--model", choices=("depthpro", "stub"), default=None)
-    parser.add_argument("--input-size", type=int, default=1536)
+    parser.add_argument("--model", choices=depth_map_generator.MODELS,
+                        default=None)
+    parser.add_argument("--input-size", type=int, default=None,
+                        help="Model input resolution (default: the model's "
+                             "own, 1536 for DepthPro, 518 for "
+                             "depth-anything-v2)")
     parser.add_argument("--no-concat", action="store_true",
                         help="Stop after chunk encoding")
     args = parser.parse_args(argv)
