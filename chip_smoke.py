@@ -10,8 +10,9 @@ Drives the port's streaming main path on the card and checks it:
   2. kernel vs plain: each hand-written kernel against its plain PyTorch
      version on the card, at the slice's 1080p shapes (super_sampling 1 for
      blur, warp, postprocess and attention; super_sampling 3 for every SBS
-     kernel: upsample, blur, planar-u8 warp, pools, pyramid, postprocess on
-     the eye pair, finish, and the split route's bilateral; DepthPro's
+     kernel: upsample, blur, planar-u8 warp, the quarter pool, pyramid,
+     postprocess on the eye pair, finish, and the split route's bilateral;
+     the f = 2 pools off the path, in the line's ``off_path`` rows; DepthPro's
      deconv sites and the split-q/k/v attention at its f32 and bf16
      shapes; the pyramid also on a 2-row quarter of the same ladder depth,
      its latency floor), under its bound, with both times, the time of one
@@ -84,22 +85,22 @@ Drives the port's streaming main path on the card and checks it:
      (``parallel/dryrun``) in-process and as two processes over gloo; (d)
      the time of (a) and (b) a batch beside the unsharded time, and the
      memory each holds: the cost of sharding on one card, not a speed-up;
-  8. the 4K main path, 2160 x 3840 at ``StereoParams()`` and the CLIs'
-     default batches (W' = 11847 is odd, so the pools run in torch glue and
-     the split route is refused, as in the JAX package): (a) each kernel of
-     the path against its plain version at batch 4, whose [4, 8, 6480,
-     11847] pair holds more than 2^31 elements, with times and bounds; (b)
-     ``generate_sbs`` on a batch of 4 equal, bit for bit, to its frames run
-     one at a time; (c) the card against the CPU plain path on a strip of
-     4K width (the plain path on a whole frame takes minutes on the host,
-     projected from the strip's time); (d) ``render_sbs`` with full-width
-     DepthPro on batches of 4: depth and SBS ms/frame, fps, launches a
-     batch by kernel, peak memory above the weights, one torch.profiler
-     pass; (e) the depth and SBS step CLIs' ``main(argv)`` at their default
-     batches (8 and 4) on 8 4K PNGs, their PNGs bit-equal to
-     ``build_depth_fn`` and ``generate_sbs``, frames/s and busy share, and
-     a 16-bit pass (``frame_extractor`` on a 4K clip only where the media
-     engine starts);
+  8. the 4K main path, 2160 x 3840 at ``StereoParams()`` and the CLIs' default
+     batches (W' = 11847 is odd, so the quarter pool clamps its edges and the
+     split route is refused, as in the JAX package): (a) each kernel of the
+     path against its plain version at batch 4, whose [4, 8, 6480, 11847] pair
+     holds more than 2^31 elements, with times and bounds; (b) ``generate_sbs``
+     on a batch of 4 equal, bit for bit, to its frames run one at a time and to
+     the batch with the quarter stack pooled in torch glue; (c) the card
+     against the CPU plain path on a strip of 4K width (the plain path on a
+     whole frame takes minutes on the host, projected from the strip's time);
+     (d) ``render_sbs`` with full-width DepthPro on batches of 4: depth and SBS
+     ms/frame, fps, launches a batch by kernel, peak memory above the weights,
+     one torch.profiler pass; (e) the depth and SBS step CLIs' ``main(argv)``
+     at their default batches (8 and 4) on 8 4K PNGs, their PNGs bit-equal to
+     ``build_depth_fn`` and ``generate_sbs``, frames/s and busy share, and a
+     16-bit pass (``frame_extractor`` on a 4K clip only where the media engine
+     starts);
   9. the FOV head: the JAX package's default DepthPro (``DepthProConfig()``,
      a third ViT-L on the quarter-size image, ``fov_deg`` and the metric
      ``inverse_depth``) at full width on 1080p batches of 2 through
@@ -208,6 +209,16 @@ KERNELS = [
     ("attention_flash", "cuda", "vsc_tpu_torch/csrc/attention_flash.cu",
      "vsc_tpu/ops/attention_pallas.py:111"),
 ]
+
+# kernels off the main path, kept with their plain versions: (check in
+# phase_ss_kernels, source, replaced Pallas call)
+OFF_PATH_KERNELS = [
+    ("pool2_eye4", "vsc_tpu_torch/csrc/pool.cu",
+     "vsc_tpu/ops/pool_pallas.py:91"),
+    ("pool2_f32", "vsc_tpu_torch/csrc/pool.cu",
+     "vsc_tpu/ops/pool_pallas.py:131"),
+]
+
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
@@ -600,9 +611,10 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920, phase: int = 2):
                                              gaussian_blur_planes_plain)
     from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale_planar,
                                                sharpen_downscale_plain)
+    from vsc_tpu_torch.ops import _cuda
     from vsc_tpu_torch.ops.inpaint import _edge_even
     from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
-                                             avgpool2_plain,
+                                             avgpool2_plain, avgpool4_eye4,
                                              avgpool_eye4_plain)
     from vsc_tpu_torch.ops.postprocess_cuda import (TILE_H, TILE_W,
                                                     hole_tiles,
@@ -687,30 +699,55 @@ def phase_ss_kernels(B: int, H: int = 1080, W: int = 1920, phase: int = 2):
     check(err == 0, f"planar-u8 warp disagrees: {err}")
     del want
 
-    # pools: eye4 f = 2 (6090 % 4 != 0), edge-even, f32 2x2; an odd W'
-    # (2160 x 3840: 11847) takes the torch glue, as the JAX package does
-    if UH % 2 == 0 and UW % 2 == 0:
-        # (~5 operations per input pixel of the masked pool, ~1 per input
-        # element of the f32 pool)
+    # the quarter pool: one launch at every geometry, the odd edges
+    # replicated in the kernel (1080p: W' 6090, an odd half level; 4K: W'
+    # 11847 odd); ~5 operations per input pixel
+    before = (_cuda.LAUNCHES["pool"], _cuda.ROUTE_LAUNCHES["pool_edge"])
+    q = avgpool4_eye4(pair)
+    edge = bool((UH | UW) & 3)
+    check((_cuda.LAUNCHES["pool"], _cuda.ROUTE_LAUNCHES["pool_edge"])
+          == (before[0] + 1, before[1] + edge),
+          f"quarter pool launches {_cuda.LAUNCHES['pool'] - before[0]}, "
+          f"edge {_cuda.ROUTE_LAUNCHES['pool_edge'] - before[1]}")
+    err = exact("pool4_eye4", q, avgpool_eye4_plain(pair, 4),
+                ms=time_ms(lambda: avgpool4_eye4(pair)),
+                plain_ms=time_ms(lambda: avgpool_eye4_plain(pair, 4), reps=1),
+                **least_time(nbytes(pair, q), f32=5.0 * pair[0].numel()))
+    check(err == 0, f"quarter pool disagrees: {err}")
+    r = res["pool4_eye4"]
+    log(f"phase {phase}: quarter pool [4, {2 * B}, {UH}, {UW}] u8 -> "
+        f"{list(q.shape)} f32 (edge clamps {'on' if edge else 'off'}): "
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
+
+    # the f = 2 kernels (pool_pallas.py:91 / :131), off the path since the
+    # quarter kernel, each against its plain version on the 1080p pair, in
+    # rows of their own (OFF_PATH_KERNELS); after the launch-count check
+    # above, so that they count in no window of the path's
+    if phase == 2 and UH % 2 == 0 and UW % 2 == 0:
         x2 = avgpool2_eye4(pair)
-        e1 = exact("pool_eye4", x2, avgpool_eye4_plain(pair, 2),
+        e1 = exact("pool2_eye4", x2, avgpool_eye4_plain(pair, 2),
                    ms=time_ms(lambda: avgpool2_eye4(pair)),
                    plain_ms=time_ms(lambda: avgpool_eye4_plain(pair, 2),
                                     reps=2),
                    **least_time(nbytes(pair, x2), f32=5.0 * pair[0].numel()))
         xe = _edge_even(x2)
-        K, N, h, w = xe.shape
-        planes = xe.reshape(K * N, h, w)
+        planes = xe.reshape(-1, *xe.shape[2:])
         x4 = avgpool2(planes)
-        e2 = exact("pool_f32", x4, avgpool2_plain(planes),
+        e2 = exact("pool2_f32", x4, avgpool2_plain(planes),
                    ms=time_ms(lambda: avgpool2(planes)),
                    plain_ms=time_ms(lambda: avgpool2_plain(planes), reps=2),
                    library_ms=time_ms(lambda: F.avg_pool2d(planes, 2)),
                    **least_time(nbytes(planes, x4), f32=planes.numel()))
-        check(e1 == 0 and e2 == 0, f"pools disagree: {e1} {e2}")
-        q = x4.reshape(K, N, h // 2, w // 2)
-    else:
-        q = avgpool_eye4_plain(pair, 4)
+        check(e1 == 0 and e2 == 0, f"f = 2 pools disagree: {e1} {e2}")
+        log(f"phase {phase}: off the path, avgpool2_eye4 "
+            f"{res['pool2_eye4']['ms']:.3f} ms (bound "
+            f"{res['pool2_eye4']['bound_ms']:.3f}), avgpool2 on its "
+            f"edge-even {list(planes.shape)} f32 {res['pool2_f32']['ms']:.3f}"
+            f" ms (bound {res['pool2_f32']['bound_ms']:.3f}, avg_pool2d "
+            f"{res['pool2_f32']['library_ms']:.3f}), both exact")
+        del x2, xe, planes, x4
 
     # the pyramid: the whole ladder from the quarter, as the path hands it
     # over; its latency floor is the same kernel on a 2-row quarter (the
@@ -1198,7 +1235,7 @@ def phase_4k():
 
 # launch counter -> its checks in phase_ss_kernels
 SS_PARTS = {"upsample": ("upsample_u8", "upsample_f32"),
-            "pool": ("pool_eye4", "pool_f32"), "pyramid": ("pyramid",),
+            "pool": ("pool4_eye4",), "pyramid": ("pyramid",),
             "finish": ("finish",), "warp": ("warp_planar_u8",),
             "blur": ("blur",), "postprocess": ("postprocess",),
             "bilateral": ("bilateral",)}
@@ -1207,9 +1244,9 @@ SS_PARTS = {"upsample": ("upsample_u8", "upsample_f32"),
 def merge_ss(ss: dict) -> dict:
     """One row per launch counter from phase_ss_kernels' checks: the
     largest error over the counter's checks; a row of several checks
-    (upsample, pool) sums their times and bounds, and has a library time
-    only when every part has one. A counter whose checks did not run at
-    these shapes (the pools and the bilateral at an odd W') has no row."""
+    (upsample) sums their times and bounds, and has a library time only
+    when every part has one. A counter whose checks did not run at these
+    shapes (the bilateral at an odd W') has no row."""
     rows = {}
     for name, keys in SS_PARTS.items():
         if not all(k in ss for k in keys):
@@ -2535,9 +2572,10 @@ K4_BATCHES = 2          # phase 8: timed render_sbs batches after a warm-up
 K4_STEP_FRAMES = 8      # phase 8: one depth batch of 8, two SBS batches of 4
 K4_STRIP = (120, 32)    # phase 8: the tier-1 strip's first row and rows
 # phase 8: launches of one 4K batch by kernel at the defaults: W' = 11847
-# is odd, so the pools take the torch glue and the split route is refused
+# is odd, so the quarter pool clamps its edges (one "pool_edge" launch a
+# batch) and the split route is refused
 K4_LAUNCHES = {"attention": 48, "blur": 1, "upsample": 2, "warp": 1,
-               "pyramid": 1, "postprocess": 1, "finish": 1, "pool": 0,
+               "pyramid": 1, "postprocess": 1, "finish": 1, "pool": 1,
                "bilateral": 0, "deconv": 0, "attention_split": 0,
                "attention_flash": 0}
 
@@ -2551,6 +2589,7 @@ def phase_4k_main(card: str) -> dict:
     CLIs on 4K PNGs. Returns each kernel's launches a render_sbs batch with
     its row from (a) (merge_ss), and the launches of the timed run."""
     import torch
+    from vsc_tpu_torch.ops import _cuda
     from vsc_tpu_torch.ops.stereo import (StereoParams, generate_sbs,
                                           sbs_shapes)
     from vsc_tpu_torch.pipeline.depth_map_generator import build_depth_fn
@@ -2604,7 +2643,25 @@ def phase_4k_main(card: str) -> dict:
         f"{list(range(B))}) equals the same frames at B = 1, run in the "
         f"order {order}, bit for bit; the batch's peak device memory "
         f"{peak_sbs:.2f} GiB above its inputs")
-    del batch
+    # the parent route: the quarter stack pooled in torch glue (two
+    # edge-padded f32 2x2 levels, avgpool_eye4_plain), not the kernel
+    from vsc_tpu_torch.ops import pool_cuda
+    kernel = pool_cuda.avgpool4_eye4
+    torch.cuda.reset_peak_memory_stats()
+    pool_cuda.avgpool4_eye4 = lambda eye4: pool_cuda.avgpool_eye4_plain(
+        eye4, 4)
+    try:
+        glue = generate_sbs(rgb, depth, params)
+        torch.cuda.synchronize()
+    finally:
+        pool_cuda.avgpool4_eye4 = kernel
+    peak_glue = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    check(torch.equal(glue, batch), f"(b) the 4K batch through the glue "
+          f"route differs in {int((glue != batch).sum())} values")
+    log(f"phase 8: (b) the same batch with the quarter stack pooled in "
+        f"torch glue (the parent route) gives the same bytes; its peak "
+        f"{peak_glue:.2f} GiB above the inputs, the kernel's {peak_sbs:.2f}")
+    del batch, glue
 
     # (c) the card against the CPU plain path on the strip; the plain path
     # on a whole frame would take minutes on the host (the projection)
@@ -2642,6 +2699,9 @@ def phase_4k_main(card: str) -> dict:
               f"4K render_sbs {tuple(o.shape)} {o.dtype}")
     check(launches == {k: n * K4_BATCHES for k, n in K4_LAUNCHES.items()},
           f"4K launches {launches}, expected {K4_LAUNCHES} a batch")
+    check(_cuda.ROUTE_LAUNCHES["pool_edge"] == K4_BATCHES,
+          f"4K quarter pool edge launches {_cuda.ROUTE_LAUNCHES['pool_edge']}"
+          f" over {K4_BATCHES} batches")
     d = depth_fn(frames[1])
     check(tuple(d.shape) == (B, H, W) and d.dtype == torch.uint8
           and all(int(x.max()) == 255 and int(x.min()) == 0 for x in d),
@@ -2979,8 +3039,10 @@ def bench_batch_kernels() -> dict:
     6090], the qkv attention [288, 577, 3072]), and the bench's SBS bound,
     ``utils/flops.sbs_least_time``, against these kernels' own bounds on
     the real tensors: equal for every kernel but the postprocess, whose
-    bound here adds the fill and polish of this run's hole pixels. Returns
-    a row per launch counter (merge_ss)."""
+    bound here adds the fill and polish of this run's hole pixels, and the
+    quarter pool, which the model (frozen in the benchmark) still counts
+    as the 2x2 kernel, the edge pad and the f32 2x2 kernel at W' 6090.
+    Returns a row per launch counter (merge_ss)."""
     import torch
     from vsc_tpu_torch.utils.flops import sbs_least_time
     B = BENCH_BATCH
@@ -2994,8 +3056,14 @@ def bench_batch_kernels() -> dict:
         f"ms, plain {att['plain_ms']:.3f} ms, sdpa {att['library_ms']:.3f} "
         f"ms, bound {att['bound_ms']:.3f} ms ({att['bound_by']})")
     model = sbs_least_time(1080, 1920)["stages"]
+    two_launch = B * sum(model[k]["ms"] for k in ("pool_eye4", "edge_even",
+                                                  "pool_f32"))
+    pool_bound = ss["pool4_eye4"]["bound_ms"]
+    log(f"phase 10: (a) the quarter pool's bound {pool_bound:.4f} ms a batch "
+        f"of {B}; sbs_least_time's two-launch pool stages {two_launch:.4f} "
+        f"ms")
     for name, r in ss.items():
-        if name not in model:       # the split route's bilateral
+        if name not in model:       # the split route's bilateral, the pool
             continue
         want = B * model[name]["ms"]
         ok = (want <= r["bound_ms"] * (1 + 1e-9) if name == "postprocess"
@@ -3284,11 +3352,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = phase_card_and_build()
-    kern = {}
+    kern, ss3 = {}, {}
     if 2 in phases:
-        kern = merge_kernel_results(phase_kernels(BATCH),
-                                    phase_ss_kernels(BATCH),
-                                    phase_depth_kernels(BATCH))
+        ss1 = phase_kernels(BATCH)
+        ss3 = phase_ss_kernels(BATCH)
+        kern = merge_kernel_results(ss1, ss3, phase_depth_kernels(BATCH))
         phase_4k()
     launches = phase_slice(BATCH, BATCHES, card) if 3 in phases else {}
     if 4 in phases:
@@ -3324,7 +3392,13 @@ def main(argv=None) -> int:
          "bench_launches": bench.get("launches", {}).get(name, 0),
          "at_bench_batch": bench.get("kernels", {}).get(name),
          "dav2_launches": dav2.get(name, 0)}
-        for name, route, src, rep in KERNELS]}
+        for name, route, src, rep in KERNELS],
+        "off_path": [
+            {"name": name, "source": src, "replaces": rep,
+             **{k: ss3.get(name, {}).get(k)
+                for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}}
+            for name, src, rep in OFF_PATH_KERNELS]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

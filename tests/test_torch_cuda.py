@@ -368,12 +368,72 @@ def _eye4(b, h, w, seed, dev):
     return torch.cat([rgb * valid, valid[None]]).to(torch.uint8)
 
 
-@pytest.mark.parametrize("f,shape", [(2, (2, 34, 50)), (2, (1, 6, 2)),
-                                     (4, (2, 36, 52)), (4, (1, 4, 8))])
+@pytest.mark.parametrize("f,shape", [
+    (2, (2, 34, 50)), (2, (1, 6, 2)), (4, (2, 36, 52)), (4, (1, 4, 8)),
+    # the quarter pool's edge clamps: odd and mixed sides, a 1-row and a
+    # 1-column frame, a strip of the 4K pair (W' 11847: six blocks a row)
+    (4, (1, 5, 7)), (4, (2, 6, 11)), (4, (2, 34, 50)), (4, (1, 1, 9)),
+    (4, (1, 9, 1)), (4, (2, 12, 11847)), (4, (2, 12, 6090))])
 def test_eye4_pool_kernel_is_exact(dev, f, shape):
     eye4 = _eye4(*shape, 8, dev)
+    edge = _cuda.ROUTE_LAUNCHES["pool_edge"]
     got = (avgpool2_eye4 if f == 2 else avgpool4_eye4)(eye4)
     assert torch.equal(got, avgpool_eye4_plain(eye4, f))
+    # "pool_edge" counts only quarter launches in which a clamp fires
+    assert _cuda.ROUTE_LAUNCHES["pool_edge"] == edge + (
+        f == 4 and bool((shape[1] | shape[2]) & 3))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 5, 13])
+@pytest.mark.parametrize("b,h,w", [(2, 13, 37), (1, 7, 517)])
+def test_quarter_pool_kernel_any_bytes_any_alignment(dev, offset, b, h, w):
+    """Any valid byte (its sums reach 16 * 255 * 255), an input that starts
+    at any byte (rows read as aligned 16-byte chunks), and row lengths
+    whose outputs do not fill a float4 (the scalar stores)."""
+    n = 4 * b * h * w
+    g = torch.Generator(dev).manual_seed(offset + w)
+    buf = torch.randint(0, 256, (n + offset,), generator=g, device=dev,
+                        dtype=torch.uint8)
+    eye4 = buf[offset:].view(4, b, h, w)
+    assert eye4.data_ptr() % 16 == offset
+    assert torch.equal(avgpool4_eye4(eye4), avgpool_eye4_plain(eye4, 4))
+
+
+@pytest.mark.parametrize("h,w,edge", [(36, 52, 0), (34, 50, 1), (36, 51, 1),
+                                      (35, 52, 1), (12, 6090, 1),
+                                      (12, 11847, 1)])
+def test_planar_coarse_fill_is_one_pool_launch(dev, h, w, edge):
+    """_pyramid_fill_planar_coarse pools with one quarter kernel launch at
+    every geometry ("pool_edge" where a clamp fires), then one pyramid,
+    equal bit for bit to the plain quarter and ladder."""
+    from vsc_tpu_torch.ops.inpaint import _pyramid_fill_planar_coarse
+    eye4 = _eye4(2, h, w, 30 + h, dev)
+    before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
+    got = _pyramid_fill_planar_coarse(eye4)
+    assert _cuda.LAUNCHES["pool"] == before[0]["pool"] + 1
+    assert _cuda.ROUTE_LAUNCHES["pool_edge"] == before[1]["pool_edge"] + edge
+    assert _cuda.LAUNCHES["pyramid"] == before[0]["pyramid"] + 1
+    assert torch.equal(got, pyramid_fill_below_plain(
+        avgpool_eye4_plain(eye4, 4)))
+
+
+@pytest.mark.parametrize("H,W", [(1080, 1920), (2160, 3840)])
+def test_generate_sbs_quarter_kernel_equals_glue_route(dev, monkeypatch, H,
+                                                       W):
+    """generate_sbs at the 1080p (W' 6090) and 4K (W' 11847) geometries at
+    the defaults gives the same bytes with the quarter kernel as with the
+    quarter stack pooled in torch glue (avgpool_eye4_plain), the route the
+    path took at odd widths before the kernel clamped its edges."""
+    from vsc_tpu_torch.ops import pool_cuda
+    rgb = (_rand((1, H, W, 3), 50, dev) * 255).to(torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    depth = ((0.5 + 0.3 * torch.sin(xx / 97.0) * torch.cos(yy / 53.0)
+              + 0.15 * ((xx // 240) % 2)) * 255).to(torch.uint8)[None]
+    got = generate_sbs(rgb, depth, StereoParams())
+    monkeypatch.setattr(pool_cuda, "avgpool4_eye4",
+                        lambda eye4: avgpool_eye4_plain(eye4, 4))
+    assert torch.equal(got, generate_sbs(rgb, depth, StereoParams()))
 
 
 @pytest.mark.parametrize("shape", [(4, 18, 26), (16, 2, 6), (3, 40, 302)])

@@ -77,6 +77,80 @@ def test_avgpool2_matches_pallas(shape):
     np.testing.assert_array_equal(got, np.asarray(j_avgpool2(jnp.asarray(x))))
 
 
+def _quarter_window_rule(eye4):
+    """The quarter pool's index rule, as csrc/pool.cu applies it: output
+    (y, x) sums rows min(2 min(2y + a, h1 - 1) + b, H - 1), a, b in {0, 1},
+    h1 = ceil(H / 2), and the columns alike, of (rgb * valid, valid) in
+    integers, then scales by 1/16."""
+    def index(n):
+        h1 = (n + 1) // 2
+        q = np.arange((h1 + 1) // 2)[:, None]
+        a, b = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
+        return np.minimum(2 * np.minimum(2 * q + a, h1 - 1) + b, n - 1)
+    x = eye4.astype(np.int64)
+    x = np.concatenate([x[:3] * x[3][None], x[3][None]])
+    iy, ix = index(eye4.shape[2]), index(eye4.shape[3])
+    win = x[:, :, iy][:, :, :, :, ix]           # [4, B, qh, 4, qw, 4]
+    return (win.sum(axis=(3, 5)) * 0.0625).astype(np.float32)
+
+
+# odd, even and mixed sides; strips of the 4K and 1080p pairs (W' 11847
+# and 6090, rows a multiple of 4 as 6480 and 3240 are)
+QUARTER_SHAPES = [(1, 5, 7), (2, 6, 10), (2, 8, 11), (1, 7, 12), (1, 1, 1),
+                  (1, 1, 9), (2, 9, 1), (2, 36, 52), (2, 34, 50),
+                  (2, 12, 11847), (2, 12, 6090)]
+
+
+@pytest.mark.parametrize("b,h,w", QUARTER_SHAPES)
+def test_quarter_pool_plain_is_the_pyramid_fill_prepass(b, h, w):
+    """The quarter stack (avgpool4_eye4's plain version, at any H and W) is
+    _pyramid_fill's two edge-padded 2x2 levels of (img * valid, valid),
+    the kernel's window rule gives the same bits, and the planar coarse
+    fill is _pyramid_fill(coarse_factor=4, return_coarse=True)."""
+    eye4 = _eye4(b, h, w, seed=h * w + b)
+    got = avgpool4_eye4(_t(eye4))
+    img = _t(np.moveaxis(eye4[:3], 0, -1).astype(np.float32))
+    valid = _t(eye4[3][..., None].astype(np.float32))
+    x, m = img * valid, valid
+    for _ in range(2):
+        x, m = tinp._avgpool2(x), tinp._avgpool2(m)
+    want = torch.cat([x.permute(3, 0, 1, 2), m.permute(3, 0, 1, 2)])
+    assert got.shape == (4, b, -(-h // 4), -(-w // 4))
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(), _quarter_window_rule(eye4))
+    coarse = tinp._pyramid_fill(img, valid, coarse_factor=4,
+                                return_coarse=True).permute(3, 0, 1, 2)
+    assert torch.equal(tinp._pyramid_fill_planar_coarse(_t(eye4)), coarse)
+
+
+def test_quarter_window_rule_on_any_bytes():
+    """The window rule holds for any valid byte, not only 0 and 1 (the
+    kernel's integer sums reach 16 * 255 * 255)."""
+    rng = np.random.default_rng(5)
+    eye4 = rng.integers(0, 256, (4, 2, 13, 37), dtype=np.uint8)
+    eye4[:, :, 0, :3] = 255
+    assert np.array_equal(avgpool4_eye4(_t(eye4)).numpy(),
+                          _quarter_window_rule(eye4))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: avgpool4_eye4(torch.zeros((3, 1, 8, 8), dtype=torch.uint8)),
+     r"\[4, B, H, W\]"),
+    (lambda: avgpool4_eye4(torch.zeros((4, 8, 8), dtype=torch.uint8)),
+     r"\[4, B, H, W\]"),
+    (lambda: avgpool4_eye4(torch.zeros((4, 1, 0, 8), dtype=torch.uint8)),
+     r"\[4, B, H, W\]"),
+    (lambda: avgpool4_eye4(torch.zeros((4, 1, 8, 8))), "need uint8"),
+    (lambda: avgpool2_eye4(torch.zeros((4, 1, 8, 8), dtype=torch.int16)),
+     "need uint8"),
+    (lambda: avgpool2_eye4(torch.zeros((4, 1, 6, 7), dtype=torch.uint8)),
+     "need even H, W"),
+])
+def test_eye4_pool_wrappers_refuse_bad_input(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
 def _quarter(b, h, w, seed):
     """A pooled (img * valid x3, valid) stack with empty regions."""
     rng = np.random.default_rng(seed)
@@ -99,12 +173,13 @@ def test_pyramid_plain_matches_pallas(b, h, w):
 
 
 @pytest.mark.parametrize("kmax", ["16", "384"])
-@pytest.mark.parametrize("h,w", [(72, 136), (72, 134), (71, 133)])
+@pytest.mark.parametrize("h,w", [(72, 136), (72, 134), (71, 133), (72, 135)])
 def test_planar_coarse_fill_matches_jax(monkeypatch, h, w, kmax):
-    """The prepass routes (4x4 kernel, 2x2 + 2x2 kernels, odd glue) and the
-    ladder, which the port hands whole to its pyramid, against the JAX
-    package's jnp levels above its handoff and pyramid kernel below it, at
-    two handoffs (16 puts jnp levels above it here)."""
+    """The port's one quarter pool and the ladder, which the port hands
+    whole to its pyramid, against the JAX package's prepass routes (4x4
+    kernel; 2x2 + 2x2 kernels; jnp glue at an odd side, as at 4K's W'
+    11847), its jnp levels above its handoff and pyramid kernel below it,
+    at two handoffs (16 puts jnp levels above it here)."""
     from vsc_tpu.ops.inpaint import _pyramid_fill_planar_coarse
     monkeypatch.setenv("VSC_TPU_SBS", "planar")
     monkeypatch.setenv("VSC_TPU_PYR_KMAX", kmax)

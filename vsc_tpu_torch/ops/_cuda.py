@@ -15,8 +15,9 @@ turns anything else into a RuntimeError. ``LAUNCHES`` counts launches per
 kernel: each wrapper adds one right where it launches its kernel and
 nowhere else, so a run can show that its main path went through them.
 ``ROUTE_LAUNCHES`` counts the split attention kernel's launches by route
-(``ops/attention_cuda.split_route``'s names) and the flash attention
-kernel's as "flash". ``DEVICE_COUNTERS`` names
+(``ops/attention_cuda.split_route``'s names), the flash attention
+kernel's as "flash" and the quarter pool's launches in which an edge clamp
+fires (H or W not a multiple of 4) as "pool_edge". ``DEVICE_COUNTERS`` names
 the counters a kernel keeps on the card while tracing is on
 (``utils/profiling``): ``device_counter`` hands the kernel its int64
 counters, ``reset_launches`` drops them with the launch counts and
@@ -49,7 +50,8 @@ LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
             "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
             "bilateral": 0, "deconv": 0, "attention_split": 0,
             "attention_flash": 0}
-ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0, "flash": 0}
+ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0, "flash": 0,
+                  "pool_edge": 0}
 # group -> the fields of its counters, in the kernel's order. A group's
 # counters are COUNTER_SLOTS slots of COUNTER_STRIDE int64 (a 32-byte
 # sector a slot) that the kernel's blocks add to in turn, so that their

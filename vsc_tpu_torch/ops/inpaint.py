@@ -11,10 +11,11 @@ estimate here and hands it to the postprocess kernel, which does the sweeps
 and polish itself (ops/postprocess_cuda.py).
 
 ``_pyramid_fill_planar_coarse`` is the planar-u8 form the super-sampled
-stereo branch uses: the pool kernels (ops/pool_cuda.py) for the first two
-levels, the pyramid kernel (ops/pyramid_cuda.py) for the whole ladder from
-there. ``_push_pull_hw`` is the plain ladder over the last two axes that
-both kernels' plain versions run.
+stereo branch uses: one quarter pool kernel (ops/pool_cuda.py) for the
+first two levels at any frame size, the pyramid kernel
+(ops/pyramid_cuda.py) for the whole ladder from there. ``_push_pull_hw``
+is the plain ladder over the last two axes that both kernels' plain
+versions run.
 """
 
 from __future__ import annotations
@@ -152,32 +153,20 @@ def _pyramid_fill_planar_coarse(eye4, quarter4=None):
     layout the postprocess kernel reads. Equal to
     ``_pyramid_fill(img, valid, coarse_factor=4, return_coarse=True)``.
 
-    The structure the JAX package takes on the TPU: even H and W pool in
-    the kernels (one 4x4 launch when both divide by 4, else 2x2 from u8 and
-    2x2 on f32), odd ones in torch. The pyramid kernel takes the whole
-    ladder from the quarter: the JAX package's torch levels above its
+    The first two levels are one ``avgpool4_eye4`` launch at any H and W:
+    the kernel replicates an odd side's edge at each level itself, where
+    the JAX package pools even sizes in its kernels and odd ones in jnp
+    glue (the same bits). The pyramid kernel takes the whole ladder from
+    the quarter: the JAX package's torch levels above its
     ``VSC_TPU_PYR_KMAX`` handoff give the same bits (``_push_pull_hw``).
 
     ``quarter4``: the [4, B, H/4, ~W/4] float32 pooled (rgb * valid, valid)
     stack already computed (the split route's bilateral kernel emits it,
-    ops/bilateral_cuda.py); the pools are skipped and ``eye4`` is unused."""
-    from vsc_tpu_torch.ops.pool_cuda import (avgpool2, avgpool2_eye4,
-                                             avgpool4_eye4)
+    ops/bilateral_cuda.py); the pool is skipped and ``eye4`` is unused."""
+    from vsc_tpu_torch.ops.pool_cuda import avgpool4_eye4
     from vsc_tpu_torch.ops.pyramid_cuda import pyramid_fill_below
-    if quarter4 is not None:
-        return pyramid_fill_below(quarter4)
-    H, W = eye4.shape[-2], eye4.shape[-1]
-    if H % 4 == 0 and W % 4 == 0:
-        x = avgpool4_eye4(eye4)
-    elif H % 2 == 0 and W % 2 == 0:
-        x = _edge_even(avgpool2_eye4(eye4))
-        K, B, h, w = x.shape
-        x = avgpool2(x.reshape(K * B, h, w)).reshape(K, B, h // 2, w // 2)
-    else:
-        msk = eye4[3].to(torch.float32)
-        x = torch.cat([eye4[:3].to(torch.float32) * msk, msk[None]])
-        x = _avgpool2_hw(_avgpool2_hw(x))
-    return pyramid_fill_below(x)
+    return pyramid_fill_below(avgpool4_eye4(eye4) if quarter4 is None
+                              else quarter4)
 
 
 def _frontier_sweep(val, known):

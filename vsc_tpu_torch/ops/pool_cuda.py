@@ -2,15 +2,21 @@
 Pyramid prepass pools — CUDA kernel wrappers and plain versions
 ===============================================================
 
-Replaces ``vsc_tpu/ops/pool_pallas.py``:
+Replaces ``vsc_tpu/ops/pool_pallas.py`` and, at frame sizes its kernels
+refuse, the jnp pool glue of ``vsc_tpu/ops/inpaint.py``:
 
-  avgpool2_eye4 / avgpool4_eye4  [4, B, H, W] uint8 (r, g, b, valid) ->
-      [4, B, H/f, W/f] float32 means of (rgb * valid, valid), f = 2 / 4
-  avgpool2                       [N, H, W] float32 -> [N, H/2, W/2]
+  avgpool4_eye4  [4, B, H, W] uint8 (r, g, b, valid), any H, W >= 1 ->
+      [4, B, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2)] float32 means of
+      (rgb * valid, valid) over two 2x2 levels, each edge-padding an odd
+      side first: the quarter stack of the planar-u8 branch, in one launch
+  avgpool2_eye4  the same, one level, H and W even
+  avgpool2       [N, H, W] float32 -> [N, H/2, W/2], H and W even
 
-Both are bit-exact against the plain 2x2 ladder (``ops/inpaint.py``
+All are bit-exact against the plain 2x2 ladder (``ops/inpaint.py``
 ``_avgpool2_hw``), which is what the plain versions run. Kernel source:
-``csrc/pool.cu``; one launch counter, ``pool``, for both kernels.
+``csrc/pool.cu``; one launch counter, ``pool``, for the three kernels, and
+``_cuda.ROUTE_LAUNCHES["pool_edge"]`` for the ``avgpool4_eye4`` launches
+whose H or W is not a multiple of 4 (an edge clamp fires).
 """
 
 from __future__ import annotations
@@ -38,22 +44,27 @@ def avgpool2_plain(planes):
 
 
 def _eye4(eye4, f: int):
+    if eye4.dim() != 4 or eye4.shape[0] != 4 or 0 in eye4.shape:
+        raise ValueError(f"avgpool{f}_eye4: need a non-empty [4, B, H, W], "
+                         f"got {tuple(eye4.shape)}")
     K, B, H, W = eye4.shape
-    if K != 4 or H % f or W % f:
-        raise ValueError(f"avgpool{f}_eye4: need [4, B, H, W] with H, W "
-                         f"multiples of {f}, got {tuple(eye4.shape)}")
+    if f == 2 and (H % 2 or W % 2):
+        raise ValueError(f"avgpool2_eye4: need even H, W, got "
+                         f"{tuple(eye4.shape)}")
+    if eye4.dtype != torch.uint8:
+        raise ValueError(f"avgpool{f}_eye4: need uint8, got {eye4.dtype}")
     if eye4.device.type == "cpu":
         return avgpool_eye4_plain(eye4, f)
     _cuda.require_cuda(f"avgpool{f}_eye4", eye4)
-    if eye4.dtype != torch.uint8:
-        raise ValueError(f"avgpool{f}_eye4: need uint8, got {eye4.dtype}")
-    out = torch.empty((4, B, H // f, W // f), dtype=torch.float32,
-                      device=eye4.device)
+    qh, qw = (-(-n // f) for n in (H, W))
+    out = torch.empty((4, B, qh, qw), dtype=torch.float32, device=eye4.device)
     code = _cuda.library().vsc_pool_eye4(
         eye4.data_ptr(), out.data_ptr(), B, H, W, f,
         _cuda.stream_ptr(eye4.device))
     _cuda.check(code, "vsc_pool_eye4")
     _cuda.LAUNCHES["pool"] += 1
+    if f == 4 and (H | W) & 3:
+        _cuda.ROUTE_LAUNCHES["pool_edge"] += 1
     return out
 
 
@@ -63,8 +74,8 @@ def avgpool2_eye4(eye4):
 
 
 def avgpool4_eye4(eye4):
-    """[4, B, H, W] uint8, H and W multiples of 4 -> [4, B, H/4, W/4]
-    float32, equal to two 2x2 levels."""
+    """[4, B, H, W] uint8, any H, W >= 1 -> [4, B, ceil(H/4), ceil(W/4)]
+    float32, equal to two 2x2 levels that each edge-pad an odd side."""
     return _eye4(eye4, 4)
 
 

@@ -5,7 +5,9 @@ Stereo SBS pipeline (PyTorch)
 Port of ``vsc_tpu/ops/stereo.py``, taking on every device the structure the
 JAX package takes on the TPU: where it calls a Pallas kernel the port calls
 its hand-written CUDA kernel (CUDA tensors) or that kernel's plain version
-(CPU tensors); where it runs jnp the port runs torch glue.
+(CPU tensors); where it runs jnp the port runs torch glue, except the
+quarter pool of step 7, one kernel at every frame size (the JAX package
+pools odd sizes in jnp).
 
   1. pre-stretch rgb + depth by (2*max_disparity + |convergence|)/W,
      Lanczos4, integer-quantized like cv2's u8/u16 output
