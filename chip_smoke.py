@@ -1018,8 +1018,8 @@ def phase_depth_kernels(B: int):
 def flash_check(g) -> dict:
     """The flash kernel at Depth Anything V2's shape: a batch of
     ``DAV2_BATCH`` 1080p frames at 518 x 924, qkv [8, 2443, 3072] bf16 at
-    16 heads, through ``qkv_attention`` (which hands it to the flash
-    kernel), against its plain version in its own order
+    16 heads, through ``attention`` (which picks the flash kernel
+    there), against its plain version in its own order
     (``flash_attention_plain``: max 8e-3, mean 1e-5) and the full-row
     plain version (``short_seq_attention_plain``, p rounded at the final
     max, not the running one: max 8e-3, mean 1e-4), the bounds of
@@ -1032,8 +1032,8 @@ def flash_check(g) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from vsc_tpu_torch.ops import _cuda
-    from vsc_tpu_torch.ops.attention_cuda import (flash_attention_plain,
-                                                  qkv_attention,
+    from vsc_tpu_torch.ops.attention_cuda import (attention,
+                                                  flash_attention_plain,
                                                   short_seq_attention,
                                                   short_seq_attention_plain)
     from vsc_tpu_torch.utils.flops import least_time
@@ -1042,7 +1042,7 @@ def flash_check(g) -> dict:
         torch.bfloat16)
     q, k, v = qkv.view(N, T, 3, H, Dh).unbind(2)
     before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
-    o = qkv_attention(qkv, H, scale).float()
+    o = attention(qkv, H, scale).float()
     check(_cuda.LAUNCHES["attention_flash"]
           == before[0]["attention_flash"] + 1
           and _cuda.ROUTE_LAUNCHES["flash"] == before[1]["flash"] + 1
@@ -1069,7 +1069,7 @@ def flash_check(g) -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
     r = dict(max_abs_err=err, mean_abs_err=own[1], full_row_max_err=row[0],
              full_row_mean_err=row[1],
-             ms=time_ms(lambda: qkv_attention(qkv, H, scale)),
+             ms=time_ms(lambda: attention(qkv, H, scale)),
              plain_ms=time_ms(lambda: flash_attention_plain(qkv, H, scale),
                               reps=2),
              full_row_plain_ms=time_ms(lambda: short_seq_attention_plain(
@@ -1095,7 +1095,7 @@ def flash_check(g) -> dict:
 def attention_two_pass(B: int) -> None:
     """Attention beyond the qkv kernel's 640 tokens: the token counts of
     DepthPro at input 2048 (tiles of 512: [36B, 1025] tokens) and 4096
-    (4097 tokens), through qkv_attention (bf16, on the flash kernel,
+    (4097 tokens), through attention (bf16, on the flash kernel,
     against its plain version in its own order) and short_seq_attention
     (f32, on the split kernel's two-pass route), against the plain
     versions, with SDPA's time beside them."""
@@ -1103,8 +1103,8 @@ def attention_two_pass(B: int) -> None:
     from vsc_tpu_torch.utils.flops import least_time
     import torch.nn.functional as F
     from vsc_tpu_torch.ops import _cuda
-    from vsc_tpu_torch.ops.attention_cuda import (flash_attention_plain,
-                                                  qkv_attention,
+    from vsc_tpu_torch.ops.attention_cuda import (attention,
+                                                  flash_attention_plain,
                                                   short_seq_attention,
                                                   short_seq_attention_plain)
     dev = torch.device("cuda")
@@ -1118,7 +1118,7 @@ def attention_two_pass(B: int) -> None:
         q, k, v = qkv.view(N, T, 3, H, Dh).unbind(2)
         bf16 = dtype == torch.bfloat16
         if bf16:
-            fn = lambda: qkv_attention(qkv, H, scale)          # noqa: E731
+            fn = lambda: attention(qkv, H, scale)              # noqa: E731
             o_p = flash_attention_plain(qkv, H, scale).float()
             plain = lambda: flash_attention_plain(qkv, H, scale)  # noqa: E731
         else:
@@ -1144,7 +1144,7 @@ def attention_two_pass(B: int) -> None:
                                   "f32": 5.0 * T * T * N * H} if bf16 else
                                  {"f32": ops + 5.0 * T * T * N * H})))
         ok = (err <= 8e-3 and mean_err <= 1e-5) if bf16 else err <= 2e-5
-        name = (f"{'qkv_attention' if bf16 else 'short_seq_attention'} "
+        name = (f"{'attention' if bf16 else 'short_seq_attention'} "
                 f"{str(dtype)[6:]} [{N}, {T}, {3 * H * Dh}], {route} route")
         log(f"phase 2: {name}: max_abs_err {err:.3g}, mean {mean_err:.3g} "
             f"[{'max 8e-3, mean 1e-5' if bf16 else 'max 2e-5'}], kernel "
@@ -2409,8 +2409,7 @@ def phase_parallel(card: str) -> None:
     sharding overhead beside the unsharded time."""
     import torch
     from vsc_tpu_torch.models import DepthProConfig, ViTConfig
-    from vsc_tpu_torch.models import vit as vit_module
-    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops import _cuda, attention_cuda
     from vsc_tpu_torch.ops.stereo import StereoParams, generate_sbs
     from vsc_tpu_torch.parallel import dryrun
     from vsc_tpu_torch.parallel.auto import gather, shard_batch
@@ -2486,16 +2485,16 @@ def phase_parallel(card: str) -> None:
     check(type(x_tp) is torch.Tensor, "a one-row mesh placed a Sharded batch")
     fn_tp(x_tp)                                           # warm-up
     shapes = set()
-    real = vit_module.qkv_attention
+    real = attention_cuda.qkv_attention
 
     def recording(qkv, heads, scale):
         shapes.add((tuple(qkv.shape), heads))
         return real(qkv, heads, scale)
-    vit_module.qkv_attention = recording
+    attention_cuda.qkv_attention = recording
     try:
         fn_tp(x_tp)
     finally:
-        vit_module.qkv_attention = real
+        attention_cuda.qkv_attention = real
     torch.cuda.synchronize()
     _cuda.reset_launches()
     d_tp = fn_tp(x_tp)
@@ -2827,15 +2826,14 @@ def plain_attention():
     """The ViTs on the plain attention (``qkv_attention_plain``,
     ``short_seq_attention_plain``) inside the with-block: the yardstick a
     kernel route is held against here, never a route of the program."""
-    from vsc_tpu_torch.models import vit
-    from vsc_tpu_torch.ops import attention_cuda
-    saved = vit.qkv_attention, vit.short_seq_attention
-    vit.qkv_attention = attention_cuda.qkv_attention_plain
-    vit.short_seq_attention = attention_cuda.short_seq_attention_plain
+    from vsc_tpu_torch.ops import attention_cuda as a
+    saved = a.qkv_attention, a.short_seq_attention
+    a.qkv_attention = a.qkv_attention_plain
+    a.short_seq_attention = a.short_seq_attention_plain
     try:
         yield
     finally:
-        vit.qkv_attention, vit.short_seq_attention = saved
+        a.qkv_attention, a.short_seq_attention = saved
 
 
 def depth_input(frames):

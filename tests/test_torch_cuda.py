@@ -11,7 +11,8 @@ import torch
 
 from vsc_tpu_torch.config import StereoParams
 from vsc_tpu_torch.ops import _cuda
-from vsc_tpu_torch.ops.attention_cuda import qkv_attention, qkv_attention_plain
+from vsc_tpu_torch.ops.attention_cuda import (attention, qkv_attention,
+                                              qkv_attention_plain)
 from vsc_tpu_torch.ops.blur_cuda import (gaussian_blur_planes,
                                          gaussian_blur_planes_plain)
 from vsc_tpu_torch.ops.finish_cuda import (sharpen_downscale,
@@ -444,7 +445,7 @@ def test_avgpool2_kernel_is_exact(dev, shape):
 
 def _pyramid_check(q):
     """One counted launch, bit-identical to the plain ladder (the torch
-    ladder with no handoff, _push_pull_hw(kmax=1))."""
+    ladder, _push_pull_hw)."""
     before = _cuda.LAUNCHES["pyramid"]
     got = pyramid_fill_below(q)
     assert _cuda.LAUNCHES["pyramid"] == before + 1
@@ -982,7 +983,7 @@ def test_split_attention_two_pass_dominant_key(dev, dtype):
 @pytest.mark.parametrize("N,T,H", [(3, 641, 2), (2, 1025, 16), (1, 1601, 3),
                                    (1, 4097, 1)])
 def test_attention_kernel_beyond_its_tokens(dev, N, T, H):
-    # qkv_attention past its own kernel's 640 keys: the flash kernel on the
+    # attention past the qkv kernel's 640 keys: the flash kernel on the
     # same qkv, the qkv and split kernels not launched; against the plain
     # version in the flash kernel's order (flash_attention_plain), with the
     # qkv kernel's bounds
@@ -991,7 +992,7 @@ def test_attention_kernel_beyond_its_tokens(dev, N, T, H):
     qkv = torch.randn((N, T, 3 * H * 64), generator=g, device=dev).to(
         torch.bfloat16)
     before = dict(_cuda.LAUNCHES), dict(_cuda.ROUTE_LAUNCHES)
-    got = qkv_attention(qkv, H, 0.125).float()
+    got = attention(qkv, H, 0.125).float()
     assert _cuda.LAUNCHES["attention"] == before[0]["attention"]
     assert _cuda.LAUNCHES["attention_split"] == before[0]["attention_split"]
     assert _cuda.LAUNCHES["attention_flash"] == \
@@ -1012,7 +1013,7 @@ def test_attention_kernel_beyond_its_tokens_large_logits(dev):
     qkv = torch.randn((4, 1025, 3 * 2 * 64), generator=g, device=dev)
     qkv[..., :2 * 2 * 64] *= 30 ** 0.5
     qkv = qkv.to(torch.bfloat16)
-    got = qkv_attention(qkv, 2, 0.125).float()
+    got = attention(qkv, 2, 0.125).float()
     want = flash_attention_plain(qkv, 2, 0.125).float()
     assert bool(torch.isfinite(got).all())
     vmax = float(qkv[..., 2 * 2 * 64:].float().abs().max())
@@ -1033,13 +1034,25 @@ def test_attention_kernel_beyond_its_tokens_dominant_key(dev):
     for n, j in enumerate(keys):
         qkv[n, j, D:2 * D] = 2.0
     qkv = qkv.to(torch.bfloat16)
-    got = qkv_attention(qkv, H, 0.125).float()
+    got = attention(qkv, H, 0.125).float()
     want = flash_attention_plain(qkv, H, 0.125).float()
     diff = (got - want).abs()
     assert float(diff.max()) <= 8e-3 and float(diff.mean()) <= 1e-5
     for n, j in enumerate(keys):
         torch.testing.assert_close(got[n], qkv[n, j, 2 * D:].float()[
             None].expand(T, D), atol=1e-2, rtol=0)
+
+
+def test_qkv_attention_refuses_more_than_its_tokens(dev):
+    # the qkv kernel's own wrapper past QKV_MAX_T keys: an error and no
+    # launch (attention, not qkv_attention, picks the flash kernel there)
+    from vsc_tpu_torch.ops.attention_cuda import QKV_MAX_T
+    qkv = torch.zeros((1, QKV_MAX_T + 1, 3 * 64), dtype=torch.bfloat16,
+                      device=dev)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="at most"):
+        qkv_attention(qkv, 1, 0.125)
+    assert _cuda.LAUNCHES == before
 
 
 @pytest.mark.parametrize("N,T,H", [(2, 641, 2), (1, 768, 3), (3, 1000, 1),
@@ -1286,7 +1299,8 @@ def test_fov_head_kernel_route_equals_plain(dev, monkeypatch, dtype):
     grid of 0.25 there)."""
     import copy
     from vsc_tpu_torch.models import (DepthPro, DepthProConfig, ViTConfig,
-                                      init_flax_like, vit)
+                                      init_flax_like)
+    from vsc_tpu_torch.ops import attention_cuda
     from vsc_tpu_torch.ops.attention_cuda import short_seq_attention_plain
     cfg = DepthProConfig(
         encoder=ViTConfig(img_size=32, patch_size=4, embed_dim=128, depth=2,
@@ -1308,8 +1322,9 @@ def test_fov_head_kernel_route_equals_plain(dev, monkeypatch, dtype):
     def run(m, plain=False):
         with monkeypatch.context() as mp:
             if plain:
-                mp.setattr(vit, "qkv_attention", qkv_attention_plain)
-                mp.setattr(vit, "short_seq_attention",
+                mp.setattr(attention_cuda, "qkv_attention",
+                           qkv_attention_plain)
+                mp.setattr(attention_cuda, "short_seq_attention",
                            short_seq_attention_plain)
             with torch.no_grad():
                 return m(x)
@@ -1541,29 +1556,3 @@ def test_dropped_gather_results_reuse_pinned_blocks(dev):
     for _ in range(20):
         gather(x)
     assert stats()["num_host_alloc"] == before
-
-
-def test_gather_counts_its_pinned_copies_while_tracing(dev):
-    """While tracing, transfer.pinned_out counts each gather of a device
-    result and transfer.pinned_out_bytes sums their bytes; untraced
-    gathers count nothing."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from vsc_tpu_torch.parallel.auto import gather
-    from vsc_tpu_torch.utils import profiling
-    results = [_gather_case(c, dev)[0] for c in ("u8", "f32", "sharded")]
-    _cuda.reset_launches()
-    for r in results:
-        gather(r)
-    assert profiling.counters() == {}
-    with profile(activities=[ProfilerActivity.CPU]):
-        got = [gather(r) for r in results + results[:1]]
-    c = profiling.counters()
-    assert c["transfer.pinned_out"] == 4
-    assert c["transfer.pinned_out_bytes"] == sum(g.nbytes for g in got)
-    if hasattr(torch.cuda, "host_memory_stats"):
-        assert 0 <= c["transfer.host_alloc"] <= 4
-    else:
-        assert "transfer.host_alloc" not in c
-    _cuda.reset_launches()
-    assert profiling.counters() == {}

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 from flax.core import meta
 
+from vsc_tpu_torch.ops import attention_cuda
 from vsc_tpu_torch.ops.attention_cuda import (attention_route,
                                               short_seq_attention,
                                               short_seq_attention_plain)
@@ -297,6 +298,29 @@ def test_attention_route_by_tokens(dtype, dh, tokens, route):
             attention_route(dtype, dh, tokens)
     else:
         assert attention_route(dtype, dh, tokens) == route
+
+
+@pytest.mark.parametrize("dtype,tokens,route", [
+    (torch.bfloat16, 577, "qkv"), (torch.bfloat16, 641, "flash"),
+    (torch.float32, 577, "split"), (torch.float32, 1025, "split_two_pass")])
+def test_attention_runs_its_routes_plain_function(dtype, tokens, route):
+    # attention, the ViT's one entry, on the CPU: bit-equal to the plain
+    # version of the route attention_route names (at head dim 64)
+    H, Dh, scale = 2, 64, 0.125
+    assert attention_route(dtype, Dh, tokens) == route
+    g = torch.Generator().manual_seed(tokens)
+    qkv = torch.randn((2, tokens, 3 * H * Dh), generator=g).to(dtype)
+    if route == "qkv":
+        want = attention_cuda.qkv_attention_plain(qkv, H, scale)
+    elif route == "flash":
+        want = attention_cuda.flash_attention_plain(qkv, H, scale)
+    else:
+        q, k, v = qkv.view(2, tokens, 3, H, Dh).unbind(2)
+        want = short_seq_attention_plain(q, k, v, scale).reshape(2, tokens,
+                                                                 H * Dh)
+    got = attention_cuda.attention(qkv, H, scale)
+    assert got.dtype == dtype and got.shape == (2, tokens, H * Dh)
+    assert torch.equal(got, want)
 
 
 def test_depthpro_head_dim_16_matches_jax():

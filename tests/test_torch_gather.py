@@ -1,9 +1,10 @@
-"""``parallel/auto.gather`` on the CPU, and the host counters of
-``utils/profiling``: a CPU result comes back as ``.cpu()`` gives it (a
-sharded one joined in shard order), and the "transfer.*" counters of the
-copy out to page-locked memory are neither recorded without a profiler
-nor for a CPU result while tracing. The page-locked copy itself needs a
-card (tests/test_torch_cuda.py)."""
+"""``parallel/auto.gather`` on the CPU, and what the registry of
+``utils/profiling`` keeps of it: a CPU result comes back as ``.cpu()``
+gives it (a sharded one joined in shard order); no span is recorded
+without a profiler, and while tracing a CPU result's gather leaves its
+two transfer spans. The device counters read and reset with the launch
+counts. The page-locked copy itself needs a card
+(tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -61,11 +62,11 @@ def test_gather_of_a_cpu_sharded_batch_joins_in_shard_order(dtype, rows):
 
 
 def test_no_transfer_counter_without_a_profiler(registry):
+    """Untraced, gather records no span and no counter."""
     x = shard_batch(np.arange(96, dtype=np.uint8).reshape(8, 12), "cpu",
                     make_mesh(2, 1, devices=CPU8))
     gather(x)
     gather(x.parts[0])
-    registry.count("transfer.pinned_out")
     assert registry.counters() == {}
     assert registry.spans() == []
 
@@ -73,39 +74,36 @@ def test_no_transfer_counter_without_a_profiler(registry):
 @pytest.mark.parametrize("sharded", [False, True])
 def test_no_transfer_counter_for_a_cpu_result_while_tracing(registry,
                                                             sharded):
+    """Traced, a CPU result's gather leaves exactly its drain and copy-out
+    spans, the copy-out with the result's rows as its frames, and no
+    counter."""
     x = shard_batch(np.arange(96, dtype=np.uint8).reshape(8, 12), "cpu",
                     make_mesh(2 if sharded else 1, 1, devices=CPU8))
     with profile(activities=[ProfilerActivity.CPU]):
         got = gather(x)
     assert got.numpy().tolist() == np.arange(96).reshape(8, 12).tolist()
-    assert not [k for k in registry.counters() if k.startswith("transfer.")]
-    names = [s["name"] for s in registry.spans()]
-    assert names == ["transfer.drain", "transfer.copy_out"]
+    assert registry.counters() == {}
+    recorded = registry.spans()
+    assert [s["name"] for s in recorded] == ["transfer.drain",
+                                             "transfer.copy_out"]
+    assert [s["frames"] for s in recorded] == [None, 8]
 
 
 def test_host_counters_count_while_tracing_and_reset_with_launches(
         registry, monkeypatch):
-    registry.count("transfer.pinned_out")
-    with profile(activities=[ProfilerActivity.CPU]):
-        for n in (3, 5):
-            registry.count("transfer.pinned_out")
-            registry.count("transfer.pinned_out_bytes", n)
-        registry.count("transfer.host_alloc", 0)
-    registry.count("transfer.pinned_out_bytes", 7)
-    assert registry.counters() == {"transfer.pinned_out": 2,
-                                   "transfer.pinned_out_bytes": 8,
-                                   "transfer.host_alloc": 0}
-    # beside the device counters (a CPU tensor stands in for the card's)
-    t = torch.zeros((_cuda.COUNTER_SLOTS, _cuda.COUNTER_STRIDE),
-                    dtype=torch.int64)
-    t[1, :2] = torch.tensor([4, 1])
-    monkeypatch.setitem(_cuda._COUNTER_TENSORS, ("postprocess", 0), t)
-    assert registry.counters() == {"transfer.pinned_out": 2,
-                                   "transfer.pinned_out_bytes": 8,
-                                   "transfer.host_alloc": 0,
-                                   "postprocess.fast_tiles": 4,
-                                   "postprocess.hole_tiles": 1}
+    """The registry's counters are the device counters alone, their slots
+    and cards summed; ``reset`` keeps them and ``reset_launches`` drops
+    them (CPU tensors stand in for the cards')."""
+    assert registry.counters() == {}
+    for dev, (slot, fast, holes) in enumerate([(1, 4, 1), (7, 2, 3)]):
+        t = torch.zeros((_cuda.COUNTER_SLOTS, _cuda.COUNTER_STRIDE),
+                        dtype=torch.int64)
+        t[slot, :2] = torch.tensor([fast, holes])
+        t[0, :2] = torch.tensor([10, 0])
+        monkeypatch.setitem(_cuda._COUNTER_TENSORS, ("postprocess", dev), t)
+    want = {"postprocess.fast_tiles": 26, "postprocess.hole_tiles": 4}
+    assert registry.counters() == want
     registry.reset()                        # spans only
-    assert registry.counters()["transfer.pinned_out"] == 2
+    assert registry.counters() == want
     _cuda.reset_launches()
     assert registry.counters() == {}

@@ -19,7 +19,7 @@ strides: the qkv kernel for bf16 at head dim 64 up to 640 tokens (input
 1536), the flash kernel for bf16 at head dim 64 beyond (DepthPro at input
 2048 and up, Depth Anything V2's 2,443 tokens), the split-q/k/v kernel for
 float32 (``VSC_TPU_DEPTH_DTYPE=float32``) and other head dims, as
-``attention_route`` decides (the JAX module's choice at
+``attention_cuda.attention`` chooses (the JAX module's choice at
 ``vsc_tpu/models/vit.py:185-221``, with the flash route added). Matmuls
 are ``nn.Linear`` (the JAX package leaves them to XLA). The
 folded-LayerNorm variant of the JAX module is not ported.
@@ -49,9 +49,7 @@ import math
 import torch
 from torch import nn
 
-from vsc_tpu_torch.ops.attention_cuda import (attention_route,
-                                              qkv_attention,
-                                              short_seq_attention)
+from vsc_tpu_torch.ops import attention_cuda
 from vsc_tpu_torch.parallel.collectives import (all_gather, all_reduce,
                                                 broadcast, gather_tokens,
                                                 reduce_scatter, split_tokens)
@@ -124,14 +122,8 @@ class Attention(nn.Module):
 
     def core(self, x):
         """The attention output before ``proj``, [B, T, inner]."""
-        qkv = self.qkv(x)
-        B, T, D3 = qkv.shape
-        H, Dh = self.num_heads, D3 // (3 * self.num_heads)
-        if attention_route(qkv.dtype, Dh, T) in ("qkv", "flash"):
-            # qkv_attention hands the flash route on itself
-            return qkv_attention(qkv.contiguous(), H, self.scale)
-        q, k, v = qkv.view(B, T, 3, H, Dh).unbind(2)
-        return short_seq_attention(q, k, v, self.scale).reshape(B, T, -1)
+        return attention_cuda.attention(self.qkv(x), self.num_heads,
+                                        self.scale)
 
     def forward(self, x):
         return self.proj(self.core(x))

@@ -21,8 +21,7 @@ fires (H or W not a multiple of 4) as "pool_edge". ``DEVICE_COUNTERS`` names
 the counters a kernel keeps on the card while tracing is on
 (``utils/profiling``): ``device_counter`` hands the kernel its int64
 counters, ``reset_launches`` drops them with the launch counts and
-``utils/profiling.counters`` reads them; ``HOST_COUNTS`` holds the host
-counters ``utils/profiling.count`` adds to, dropped with them.
+``utils/profiling.counters`` reads them.
 """
 
 from __future__ import annotations
@@ -59,7 +58,6 @@ ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0, "flash": 0,
 DEVICE_COUNTERS = {"postprocess": ("fast_tiles", "hole_tiles")}
 COUNTER_SLOTS, COUNTER_STRIDE = 256, 4
 _COUNTER_TENSORS: dict = {}     # (group, CUDA device index) -> int64 tensor
-HOST_COUNTS: dict = {}          # "<group>.<field>" -> count (host counters)
 BUILD_SECONDS: list[float] = []   # wall time of the build, once it ran
 
 _LOCK = threading.Lock()
@@ -118,7 +116,6 @@ def reset_launches() -> None:
         for k in counts:
             counts[k] = 0
     _COUNTER_TENSORS.clear()
-    HOST_COUNTS.clear()
 
 
 def device_counter(group: str, device):

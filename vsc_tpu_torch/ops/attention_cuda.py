@@ -15,9 +15,7 @@ input dtype, PV accumulated in f32, divided by the row sum):
                        layout and reads it through strides. Kernel source:
                        ``csrc/attention.cu`` (bf16, head dim 64, at most
                        ``QKV_MAX_T`` tokens: each head's K and V and every
-                       query row's logits stay on chip). Beyond that the
-                       wrapper hands the same qkv to ``flash_attention``
-                       (``attention_route`` alone draws the line).
+                       query row's logits stay on chip).
   short_seq_attention  replaces ``short_seq_attention``: separate q, k, v
                        [B, T, H, Dh], here strided views of the fused
                        projection (no copies). Kernel source:
@@ -42,11 +40,12 @@ case past the qkv kernel's range (Depth Anything V2's 2,443 tokens):
                        function is the one above within bf16's rounding of
                        p.
 
-``attention_route`` picks between them by dtype, head dim and token count:
-the qkv kernel for bf16 at head dim 64 (the production DepthPro at input
-1536) up to ``QKV_MAX_T`` tokens, the flash kernel for bf16 at head dim 64
-beyond, the split kernel for every other case it takes, an error for the
-rest. The JAX package sends head dim 64 in float32 to its qkv kernel too
+``attention``, the one entry the ViT calls, runs the kernel that
+``attention_route`` picks by dtype, head dim and token count: the qkv
+kernel for bf16 at head dim 64 (the production DepthPro at input 1536) up
+to ``QKV_MAX_T`` tokens, the flash kernel for bf16 at head dim 64 beyond,
+the split kernel for every other case it takes, an error for the rest.
+The JAX package sends head dim 64 in float32 to its qkv kernel too
 (its lane group exists for any dtype, and it pads T to a multiple of 8 at
 any size); the port sends it to the split kernel, which computes the same
 function. ``_cuda.ROUTE_LAUNCHES`` counts the split kernel's launches by
@@ -59,10 +58,11 @@ import torch
 
 from vsc_tpu_torch.ops import _cuda
 
-__all__ = ["qkv_attention", "qkv_attention_plain", "short_seq_attention",
-           "short_seq_attention_plain", "flash_attention",
-           "flash_attention_plain", "attention_route", "split_route",
-           "SPLIT_HEAD_DIMS", "QKV_MAX_T", "SPLIT_RESIDENT_T", "FLASH_KEYS"]
+__all__ = ["attention", "qkv_attention", "qkv_attention_plain",
+           "short_seq_attention", "short_seq_attention_plain",
+           "flash_attention", "flash_attention_plain", "attention_route",
+           "split_route", "SPLIT_HEAD_DIMS", "QKV_MAX_T", "SPLIT_RESIDENT_T",
+           "FLASH_KEYS"]
 
 HEAD_DIM = 64
 QKV_MAX_T = 640     # the qkv kernel's key range (csrc/attention.cu kTmax)
@@ -172,23 +172,36 @@ def qkv_attention_plain(qkv, num_heads: int, scale: float):
     return out.transpose(1, 2).reshape(N, T, D)
 
 
+def attention(qkv, num_heads: int, scale: float):
+    """qkv [B, T, 3D] ([q | k | v], PyTorch's fused projection) -> [B, T,
+    D] on the kernel ``attention_route`` names for its dtype, head dim and
+    T: ``qkv_attention`` or ``flash_attention`` on the contiguous qkv, or
+    ``short_seq_attention`` on strided q, k, v views of it (no copies). On
+    CPU tensors each runs its plain version."""
+    B, T, D3 = qkv.shape
+    Dh = D3 // (3 * num_heads)
+    route = attention_route(qkv.dtype, Dh, T)
+    if route == "qkv":
+        return qkv_attention(qkv.contiguous(), num_heads, scale)
+    if route == "flash":
+        return flash_attention(qkv.contiguous(), num_heads, scale)
+    q, k, v = qkv.view(B, T, 3, num_heads, Dh).unbind(2)
+    return short_seq_attention(q, k, v, scale).reshape(B, T, -1)
+
+
 def qkv_attention(qkv, num_heads: int, scale: float):
-    """bf16 at head dim 64 where ``attention_route`` names "flash" (past
-    ``QKV_MAX_T`` tokens): ``flash_attention`` on the same qkv, on either
-    device. Otherwise CPU tensors: the plain version; CUDA tensors: the
-    kernel (bf16, head dim 64)."""
-    N, T, D3 = qkv.shape
-    bf16_64 = qkv.dtype == torch.bfloat16 and D3 == 3 * num_heads * HEAD_DIM
-    if bf16_64 and attention_route(qkv.dtype, HEAD_DIM, T) == "flash":
-        return flash_attention(qkv, num_heads, scale)
+    """CPU tensors: the plain version; CUDA tensors: the kernel (bf16, head
+    dim 64, at most ``QKV_MAX_T`` tokens)."""
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads, scale)
     _cuda.require_cuda("qkv_attention", qkv)
-    if not bf16_64:
+    N, T, D3 = qkv.shape
+    if (qkv.dtype != torch.bfloat16 or D3 != 3 * num_heads * HEAD_DIM
+            or T > QKV_MAX_T):
         raise ValueError(f"qkv_attention: the kernel takes bfloat16 "
-                         f"[N, T, 3 * heads * {HEAD_DIM}], got "
-                         f"{tuple(qkv.shape)} {qkv.dtype} with "
-                         f"{num_heads} heads")
+                         f"[N, T, 3 * heads * {HEAD_DIM}] with T at most "
+                         f"{QKV_MAX_T}, got {tuple(qkv.shape)} {qkv.dtype} "
+                         f"with {num_heads} heads")
     if qkv.data_ptr() % 16:
         # the kernel reads q, k and v rows as 16-byte vectors
         raise ValueError("qkv_attention: qkv must start on a 16-byte "

@@ -125,21 +125,15 @@ def _upsample_nearest_hw(x, out_h: int, out_w: int, factor: int):
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
-def _push_pull_hw(img, msk, kmax: int = 1, below=None):
+def _push_pull_hw(img, msk):
     """Masked push-pull of [3, B, h, w] ``img`` (already times the mask)
-    under [B, h, w] ``msk``: pool while the larger side exceeds ``kmax``,
-    fill the last level (img / msk at 1 x 1, or ``below`` of the stacked
-    [4, B, h', w'] level), then combine back up level by level. The port's
-    paths pass neither ``kmax`` nor ``below``; they stay for the test that
-    holds a handoff anywhere to the same bits as none."""
+    under [B, h, w] ``msk``: pool to 1 x 1, fill it (img / msk), then
+    combine back up level by level."""
     levels = []
-    while max(msk.shape[-2], msk.shape[-1]) > kmax:
+    while max(msk.shape[-2], msk.shape[-1]) > 1:
         levels.append((img, msk))
         img, msk = _avgpool2_hw(img), _avgpool2_hw(msk)
-    if below is None:
-        filled = img / torch.clamp(msk, min=1e-8)
-    else:
-        filled = below(torch.cat([img, msk[None]]))
+    filled = img / torch.clamp(msk, min=1e-8)
     for img_l, msk_l in reversed(levels):
         up = _upsample_nearest_hw(filled, img_l.shape[-2], img_l.shape[-1], 2)
         filled = torch.where(msk_l > 1e-8, img_l / torch.clamp(msk_l, min=1e-8),
@@ -157,8 +151,8 @@ def _pyramid_fill_planar_coarse(eye4, quarter4=None):
     the kernel replicates an odd side's edge at each level itself, where
     the JAX package pools even sizes in its kernels and odd ones in jnp
     glue (the same bits). The pyramid kernel takes the whole ladder from
-    the quarter: the JAX package's torch levels above its
-    ``VSC_TPU_PYR_KMAX`` handoff give the same bits (``_push_pull_hw``).
+    the quarter, where the JAX package runs jnp levels above its
+    ``VSC_TPU_PYR_KMAX`` handoff and its kernel below: the same ladder.
 
     ``quarter4``: the [4, B, H/4, ~W/4] float32 pooled (rgb * valid, valid)
     stack already computed (the split route's bilateral kernel emits it,

@@ -8,7 +8,7 @@ torch glue levels the JAX package runs above its handoff
 img * valid, then the pooled valid) -> [3, N, h, w] float32 push-pull
 estimate, the whole level ladder down to 1 x 1 and back. Its plain version
 is the torch ladder (``ops/inpaint.py`` ``_push_pull_hw``), level for
-level bit-identical wherever a handoff lies. Kernel source:
+level bit-identical. Kernel source:
 ``csrc/pyramid.cu`` (three launches: a down pass and an up pass over
 32 x 32 regions on every SM, the small levels between them in one block
 per frame), counted as one. The wrapper keeps the name of the Pallas

@@ -18,10 +18,7 @@ staged through a CUDA bounce buffer into fresh pageable pages.
 While tracing is on (``utils/profiling``) the copies are spans:
 "transfer.copy_in" (``shard_batch``), "transfer.drain" (``gather``'s wait
 for the work queued before its copy) and "transfer.copy_out" (the copy
-itself, with the rows copied as its frames); host counters count the
-copies out to page-locked memory ("transfer.pinned_out"), their bytes
-("transfer.pinned_out_bytes") and those for which the pinned allocator
-had to grow ("transfer.host_alloc").
+itself, with the rows copied as its frames).
 """
 
 from __future__ import annotations
@@ -29,7 +26,7 @@ from __future__ import annotations
 import functools
 
 from vsc_tpu_torch.parallel.mesh import Mesh, Sharded, data_sharding
-from vsc_tpu_torch.utils.profiling import count, span, tracing
+from vsc_tpu_torch.utils.profiling import span, tracing
 
 __all__ = ["data_mesh", "device_count", "gather", "pad_to_multiple",
            "shard_batch"]
@@ -115,14 +112,6 @@ def _wait(devices) -> None:
         ev.synchronize()
 
 
-def _host_allocs() -> int | None:
-    """The pinned allocator's count of the blocks it grew by, where this
-    torch reports it."""
-    import torch
-    stats = getattr(torch.cuda, "host_memory_stats", None)
-    return None if stats is None else stats().get("num_host_alloc", 0)
-
-
 def gather(result):
     """A device result as one CPU tensor that the caller owns: a
     ``Sharded`` one joined in shard order. Waits for the device (while
@@ -139,8 +128,7 @@ def gather(result):
     import torch
     parts = result.parts if isinstance(result, Sharded) else (result,)
     cards = list(dict.fromkeys(p.device for p in parts if p.is_cuda))
-    traced = tracing()
-    if traced:
+    if tracing():
         with span("transfer.drain"):
             _wait(cards)
     with span("transfer.copy_out", frames=result.shape[0]):
@@ -148,14 +136,8 @@ def gather(result):
             if isinstance(result, Sharded):
                 return torch.cat([p.cpu() for p in parts])
             return result.cpu()
-        grown = _host_allocs() if traced else None
         out = torch.empty(tuple(result.shape), dtype=result.dtype,
                           pin_memory=True)
-        if traced:
-            count("transfer.pinned_out")
-            count("transfer.pinned_out_bytes", out.nbytes)
-            if grown is not None:
-                count("transfer.host_alloc", _host_allocs() - grown)
         row = 0
         for p in parts:
             out[row:row + p.shape[0]].copy_(p, non_blocking=True)

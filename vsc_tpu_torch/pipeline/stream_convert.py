@@ -14,8 +14,10 @@ the port's own copies of the JAX package's framework-free layers
 It runs on the card unless the caller asks for the CPU (``--cpu``, or
 ``device="cpu"`` to ``run``); with no card and no such request it raises.
 
-The device work of one batch is ``render_sbs`` (frames in, SBS frames out),
-callable without the media engine::
+The convert path's batch step is ``convert_batch`` (host frames in, host
+SBS frames out, under the dispatch deadline); its device part is
+``render_sbs`` (frames in, SBS frames out, on the device). Both run
+without the media engine::
 
     python -m vsc_tpu_torch.pipeline.stream_convert <workflow> --model depthpro
 
@@ -33,7 +35,7 @@ from pathlib import Path
 from vsc_tpu_torch.config import (ConfigError, StereoParams, get_path,
                                   load_config)
 
-__all__ = ["render_sbs", "run", "main", "AccelFailure"]
+__all__ = ["convert_batch", "render_sbs", "run", "main", "AccelFailure"]
 
 
 class AccelFailure(RuntimeError):
@@ -52,6 +54,29 @@ def render_sbs(rgb_u8, depth_fn, params: StereoParams):
     in, ``Sharded`` out, on a data mesh)."""
     from vsc_tpu_torch.ops.stereo import generate_sbs
     return generate_sbs(rgb_u8, depth_fn(rgb_u8), params)
+
+
+def convert_batch(rgb_np, n: int, depth_fn, params: StereoParams, device,
+                  mesh=None, *, deadline: float = DISPATCH_TIMEOUT):
+    """The convert path's batch step: a host u8 batch ``rgb_np`` [B, H, W,
+    3] (B the dispatch shape, padded past its ``n`` real frames) copied
+    onto ``device`` (or the data ``mesh``), ``render_sbs``, and the first
+    ``n`` SBS frames back as a host u8 array [n, H, 2W, 3], on the dispatch
+    thread of ``parallel/health.run_with_deadline``. Raises
+    ``AccelFailure`` when ``deadline`` seconds pass."""
+    import numpy as np
+
+    from vsc_tpu_torch.parallel import health
+    from vsc_tpu_torch.parallel.auto import gather, shard_batch
+
+    def _run():
+        rgb = shard_batch(np.array(rgb_np), device, mesh)
+        sbs = render_sbs(rgb, depth_fn, params)
+        return gather(sbs)[:n].numpy()
+    try:
+        return health.run_with_deadline(_run, deadline)
+    except TimeoutError as e:
+        raise AccelFailure(str(e)) from e
 
 
 def _free_space_cleanup(workflow_path: Path, config: dict, upto: int) -> None:
@@ -90,8 +115,8 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
     from vsc_tpu_torch.pipeline.chunk_generator import find_chunks
     from vsc_tpu_torch import default_device
     from vsc_tpu_torch.parallel import health
-    from vsc_tpu_torch.parallel.auto import (data_mesh, device_count, gather,
-                                             pad_to_multiple, shard_batch)
+    from vsc_tpu_torch.parallel.auto import (data_mesh, device_count,
+                                             pad_to_multiple)
     from vsc_tpu_torch.pipeline import depth_map_generator
     from vsc_tpu_torch.utils.profiling import trace
 
@@ -149,21 +174,8 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
         frame_no = done_upto
         probe_every = max(1, -(-PROBE_EVERY_FRAMES // max(batch_size, 1)))
         batches_since_probe = 0
-        warmed = [False]
-
-        def compute_batch(rgb_np, n):
-            def _run():
-                rgb = shard_batch(np.array(rgb_np), device, mesh)
-                sbs = render_sbs(rgb, depth_fn, params)
-                return gather(sbs)[:n].numpy()
-            deadline = (DISPATCH_TIMEOUT if warmed[0]
-                        else max(DISPATCH_TIMEOUT, DISPATCH_COLD_TIMEOUT))
-            try:
-                out = health.run_with_deadline(_run, deadline)
-            except TimeoutError as e:
-                raise AccelFailure(str(e)) from e
-            warmed[0] = True
-            return out
+        # the first dispatch compiles and loads; later ones are warm
+        deadline = max(DISPATCH_TIMEOUT, DISPATCH_COLD_TIMEOUT)
 
         carry_sbs = None
         if done_upto > 0:
@@ -172,7 +184,10 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
                 print("ERROR: cannot re-decode chunk boundary frame")
                 return False
             rgb = np.frombuffer(raw, np.uint8).reshape(1, H, W, 3)
-            carry_sbs = compute_batch(np.repeat(rgb, dispatch_n, axis=0), 1)
+            carry_sbs = convert_batch(
+                np.repeat(rgb, dispatch_n, axis=0), 1, depth_fn, params,
+                device, mesh, deadline=deadline)
+            deadline = DISPATCH_TIMEOUT
 
         with trace("stream_convert"):
             while frame_no < total or total == 0:
@@ -214,7 +229,9 @@ def run(workflow_path: Path, config: dict, *, batch_size: int = 4,
                                 raise AccelFailure(
                                     "accelerator health check failed")
                             batches_since_probe = 0
-                        sbs = compute_batch(rgb, n)
+                        sbs = convert_batch(rgb, n, depth_fn, params, device,
+                                            mesh, deadline=deadline)
+                        deadline = DISPATCH_TIMEOUT
                         batches_since_probe += 1
                         sink.write(sbs.tobytes())
                         last_sbs = sbs[-1:]

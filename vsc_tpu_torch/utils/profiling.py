@@ -14,10 +14,9 @@ Profiling: traces, and the program's own spans and counters
     section are written into the same file, on tracks of their own.
   - span(): the program's named spans (the dispatch, the copies in and
     out, DepthPro's encoder and decoder, the SBS), kept in a bounded ring
-    while tracing is on; ``spans()`` reads them. Device counters
-    (``ops/_cuda.device_counter``) and host counters (``count()``: the
-    copies out to page-locked memory), both reset with the launch counts,
-    are read by ``counters()``.
+    while tracing is on; ``spans()`` reads them. The device counters
+    (``ops/_cuda.device_counter``), reset with the launch counts, are read
+    by ``counters()``.
 
 Tracing is on exactly while a torch.profiler session is open in the
 process: ``torch.autograd.profiler._is_profiler_enabled`` is one flag for
@@ -54,8 +53,8 @@ import time
 
 from torch.autograd import profiler as _torch_profiler
 
-__all__ = ["trace", "PROFILE_ENV", "tracing", "span", "spans", "count",
-           "counters", "reset", "RING"]
+__all__ = ["trace", "PROFILE_ENV", "tracing", "span", "spans", "counters",
+           "reset", "RING"]
 
 PROFILE_ENV = "VSC_TPU_PROFILE_DIR"
 RING = 16384                  # spans kept: more than any profiled window
@@ -66,7 +65,6 @@ _ids = itertools.count(1)
 _current = contextvars.ContextVar("vsc_span", default=None)  # (id, batch)
 _events: dict = {}      # CUDA device index -> [event pair or None] * RING
 _OFF = contextlib.nullcontext()
-_count_lock = threading.Lock()
 
 
 def tracing() -> bool:
@@ -146,27 +144,14 @@ def spans() -> list[dict]:
     return out
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the host counter ``name`` while tracing is on (kept in
-    ``ops/_cuda.HOST_COUNTS``); otherwise one read of the flag."""
-    if not _torch_profiler._is_profiler_enabled:
-        return
-    from vsc_tpu_torch.ops._cuda import HOST_COUNTS
-    with _count_lock:
-        HOST_COUNTS[name] = HOST_COUNTS.get(name, 0) + n
-
-
 def counters() -> dict[str, int]:
-    """The host counters (``count()``) and the device counters
-    (``ops/_cuda.DEVICE_COUNTERS``) as {"<group>.<field>": count}, the
-    device ones' slots and cards summed, read with one small copy a card
-    (which waits for the kernels that add to them)."""
+    """The device counters (``ops/_cuda.DEVICE_COUNTERS``) as
+    {"<group>.<field>": count}, their slots and cards summed, read with one
+    small copy a card (which waits for the kernels that add to them)."""
     import torch
 
-    from vsc_tpu_torch.ops._cuda import (DEVICE_COUNTERS, HOST_COUNTS,
-                                         _COUNTER_TENSORS)
-    with _count_lock:
-        out: dict[str, int] = dict(HOST_COUNTS)
+    from vsc_tpu_torch.ops._cuda import DEVICE_COUNTERS, _COUNTER_TENSORS
+    out: dict[str, int] = {}
     for dev in sorted({d for _, d in _COUNTER_TENSORS}):
         groups = [g for g, d in _COUNTER_TENSORS if d == dev]
         sums = torch.stack([_COUNTER_TENSORS[g, dev] for g in groups]).cpu()
