@@ -27,14 +27,17 @@ Drives the port's streaming main path on the card and checks it:
      kernel's two-pass route; the flash kernel at Depth Anything V2's
      shape ([8, 2443, 3072], a 1080p batch of 8) against its plain version
      in its own order and the full-row one, with the two-pass route's and
-     SDPA's flash backend's times; then the
+     SDPA's flash backend's times; the ViT's residual + LayerScale +
+     LayerNorm kernel at the patch pass of a batch of 8 ([280, 577, 1024]
+     bf16) beside the ATen kernels it replaced; then the
      super_sampling 3 kernels again at 2160 x 3840 and the SBS stage at
      that size;
   3. the slice: ``render_sbs`` (full-width DepthPro from a seed, bf16, then
      SBS) on 1080p batches at ``StereoParams()`` defaults (super_sampling 3,
      the planar-u8 branch), then a shorter run at super_sampling 1 (the
      compat branch); launch counters reset just before each run and read
-     just after; a torch.profiler pass over one default batch (device
+     just after (96 residual_norm launches a batch); a torch.profiler pass
+     over one default batch (device
      busy/idle share, device time by kernel group); an SBS-level check of
      the card against the CPU plain path on a small input at 1 and 3; then
      the JAX package's three opt-in routes to its last kernels, 2 batches
@@ -77,10 +80,12 @@ Drives the port's streaming main path on the card and checks it:
      ``generate_sbs`` at the defaults on a 1080p batch of 2 placed by
      ``shard_batch``: each shard's depth equals the unsharded depth_fn on
      its frame (batch 1) and the SBS equals the unsharded batch's, bit for
-     bit, with 48 qkv launches a shard and each SBS kernel launched twice
-     its count in one unsharded call; (b) a (1 x 2) mesh, DepthPro tensor-
-     and sequence-parallel (``seq_shard``): 96 qkv launches a 2-frame batch
-     at 8 heads on [70 | 2, 577, 1536], the u8 depth within the
+     bit, with 48 qkv and 96 residual_norm launches a shard and each SBS
+     kernel launched twice its count in one unsharded call; (b) a (1 x 2)
+     mesh, DepthPro tensor- and sequence-parallel (``seq_shard``): 96 qkv
+     launches a 2-frame batch at 8 heads on [70 | 2, 577, 1536], no
+     residual_norm launch (the sharded blocks keep the separate ops), the
+     u8 depth within the
      float32-vs-bf16 difference of the same frames; (c) the dry run
      (``parallel/dryrun``) in-process and as two processes over gloo; (d)
      the time of (a) and (b) a batch beside the unsharded time, and the
@@ -109,7 +114,8 @@ Drives the port's streaming main path on the card and checks it:
      on the same weights, ``fov_deg`` and ``inverse_depth`` on the kernels
      against the plain attention within the plain path's own
      bf16-vs-float32 difference, 72 qkv launches a batch (48 without the
-     head; counters and torch.profiler), depth ms/frame with and without
+     head; counters and torch.profiler) and 144 residual_norm launches (96
+     without), depth ms/frame with and without
      the head, weights and peak memory; (b) float32, 72 split-kernel
      launches, ``fov_deg`` within 1e-3 degrees of the plain path; (c) TP 2
      + ``seq_shard`` with the head on a (1 x 2) mesh naming cuda:0 twice,
@@ -129,7 +135,8 @@ Drives the port's streaming main path on the card and checks it:
      skipped exactly where vscmedia does not start, and the launches of
      the bench's timed iterations (its stderr; counts reset after its
      warm-up): each default-path SBS kernel every iteration, the qkv
-     attention 48 times an iteration, no opt-in route's kernel; then once
+     attention 48 times an iteration and the residual_norm kernel 96, no
+     opt-in route's kernel; then once
      more at ``BENCH_DEPTH=stub BENCH_EXTRAS=0``, the SBS reading on its
      own (no attention launch). The oracle frames (CPU) are computed by
      the first run and read from the shared disk cache by the second;
@@ -138,8 +145,8 @@ Drives the port's streaming main path on the card and checks it:
      streaming CLI runs it: ``build_depth_fn("depth-anything-v2")`` on the
      one-card data mesh, 1080p batches of 8 through ``shard_batch``,
      ``render_sbs`` and ``gather``; counters reset just before a batch: 24
-     flash launches (one a ViT block), no qkv or split-kernel launch, every
-     default SBS kernel; on a (1 x 1) data mesh the u8 depth equal to
+     flash launches (one a ViT block), 48 residual_norm launches, no qkv or
+     split-kernel launch, every default SBS kernel; on a (1 x 1) data mesh the u8 depth equal to
      the CLI path's; depth and SBS ms a frame, a batch end to end on the
      main thread, on the CLI's dispatch thread and on a fresh thread each,
      all again with cuDNN off, peak memory, one torch.profiler pass.
@@ -208,7 +215,14 @@ KERNELS = [
     # qkv_short_seq_attention, whose route past 640 tokens this kernel takes
     ("attention_flash", "cuda", "vsc_tpu_torch/csrc/attention_flash.cu",
      "vsc_tpu/ops/attention_pallas.py:111"),
+    # no Pallas site: the JAX package leaves the residual, LayerScale and
+    # LayerNorm between the ViT's sublayers to XLA's fusion
+    ("residual_norm", "cuda", "vsc_tpu_torch/csrc/residual_norm.cu",
+     "none (XLA fusion, vsc_tpu/models/vit.py:291-297)"),
 ]
+# residual_norm launches a batch: 2 a block, 24 blocks a ViT-L pass; the
+# patch and image passes of DepthPro (FOV encoder off), one pass of DAv2
+RN_DEPTHPRO, RN_DAV2 = 96, 48
 
 # kernels off the main path, kept with their plain versions: (check in
 # phase_ss_kernels, source, replaced Pallas call)
@@ -287,6 +301,7 @@ def time_ms(fn, reps: int = 20) -> float:
 CONV_GROUP = r"fprop|dgrad|wgrad|cudnn|conv|nchwToNhwc"
 GROUPS = [
     ("attention kernel", r"qkv_attention_kernel"),
+    ("residual norm kernel", r"vit_residual_norm_kernel"),
     ("split attention kernel", r"split_attention_(bf16|f32)_kernel"),
     ("deconv kernel", r"deconv2x2_(bf16|f32)_kernel"),
     ("SBS kernels (blur, warp, postprocess, bilateral)",
@@ -1012,7 +1027,69 @@ def phase_depth_kernels(B: int):
         del qkv, q, k, v, o, o_p
     attention_two_pass(B)
     res["attention_flash"] = flash_check(g)
+    res["residual_norm"] = residual_norm_check(g)
     return res
+
+
+def residual_norm_check(g) -> dict:
+    """The residual + LayerScale + LayerNorm kernel at the main path's
+    patch pass at the CLI's batch of 8 (35 tiles a frame): [280, 577,
+    1024] bf16 (the main path runs 2 a block of every ViT pass), against
+    its plain version: x_new bit for bit, h within one bf16 step of its
+    value (the bounds of tests/test_torch_cuda.py::_rn_check). Times: the
+    kernel, the plain version, and as a yardstick only (the port never
+    calls it) the ATen kernels it replaced: the LayerScale multiply, the
+    residual add, ``layer_norm``. Bound: x and y read, x_new and h written at 3.35 TB/s;
+    the three ATen kernels' bytes (7 of the stream) beside it."""
+    import torch
+    import torch.nn.functional as F
+    from vsc_tpu_torch.ops import _cuda
+    from vsc_tpu_torch.ops.residual_norm_cuda import (residual_norm,
+                                                      residual_norm_plain)
+    from vsc_tpu_torch.utils.flops import least_time
+    N, T, D, eps = 280, 577, 1024, 1e-6
+    dev = g.device
+    x = (3.0 * torch.randn((N, T, D), generator=g, device=dev)).bfloat16()
+    y = torch.randn((N, T, D), generator=g, device=dev).bfloat16()
+    gamma = (torch.rand(D, generator=g, device=dev) + 0.25).bfloat16()
+    w = (1.0 + 0.2 * torch.randn(D, generator=g, device=dev)).bfloat16()
+    b = (0.1 * torch.randn(D, generator=g, device=dev)).bfloat16()
+    before = _cuda.LAUNCHES["residual_norm"]
+    x_new, h = residual_norm(x, y, gamma, w, b, eps)
+    torch.cuda.synchronize()
+    check(_cuda.LAUNCHES["residual_norm"] == before + 1,
+          "residual_norm did not launch its kernel")
+    want_x, want_h = residual_norm_plain(x, y, gamma, w, b, eps)
+    check(torch.equal(x_new, want_x), "residual_norm x_new differs from "
+                                      "its plain version")
+    d = (h.float() - want_h.float()).abs()
+    top = torch.maximum(h.float().abs(), want_h.float().abs()).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    excess = float((d - torch.exp2(torch.floor(torch.log2(top)) - 7)
+                    - 1e-6).max())
+    err = float(d.max())
+    del x_new, h, want_x, want_h, d, top
+    check(excess <= 0, f"residual_norm h differs from its plain version by "
+                       f"more than one bf16 step: {excess}")
+
+    def aten():
+        s = x + y * gamma
+        return s, F.layer_norm(s, (D,), w, b, eps)
+    r = dict(max_abs_err=err,
+             ms=time_ms(lambda: residual_norm(x, y, gamma, w, b, eps)),
+             plain_ms=time_ms(lambda: residual_norm_plain(x, y, gamma, w, b,
+                                                          eps), reps=2),
+             library_ms=time_ms(aten),
+             **least_time(4 * nbytes(x)))
+    aten_bound = least_time(7 * nbytes(x))["bound_ms"]
+    log(f"phase 2: residual_norm bf16 [{N}, {T}, {D}]: x_new exact, h max "
+        f"diff {err:.3g} [one bf16 step]; kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, ATen multiply + add + layer_norm "
+        f"{r['library_ms']:.3f} ms (their bound {aten_bound:.3f}), bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of it)")
+    del x, y
+    return r
 
 
 def flash_check(g) -> dict:
@@ -1470,6 +1547,9 @@ def phase_slice(B: int, batches: int, card: str):
         check(tuple(o.shape) == (B, 1080, 3840, 3), o.shape)
         check(o.dtype == torch.uint8, o.dtype)
     check(all(launches[k] > 0 for k, *_ in KERNELS[:8]), launches)
+    check(launches["residual_norm"] == RN_DEPTHPRO * batches,
+          f"residual_norm launches {launches['residual_norm']} over "
+          f"{batches} batches")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     # the compat branch, shorter
@@ -1820,8 +1900,10 @@ def phase_steps(card: str) -> dict:
         l_depth = dict(_cuda.LAUNCHES)
         depth_files = sorted((wf / "depth_maps").glob("depth_frame_*.png"))
         check(len(depth_files) == n, f"{len(depth_files)} depth maps")
-        check(l_depth["attention"] > 0, f"depth step launches {l_depth}")
         batches = -(-n // STEP_DEPTH_BATCH)
+        check(l_depth["attention"] > 0
+              and l_depth["residual_norm"] == RN_DEPTHPRO * batches,
+              f"depth step launches {l_depth}")
         log(f"phase 5: depth step ({n} frames, batch {STEP_DEPTH_BATCH}): "
             f"launches {l_depth} ({batches} batches); wall {t_depth:.2f} s = "
             f"{n / t_depth:.2f} frames/s around main, pipeline "
@@ -2459,7 +2541,9 @@ def phase_parallel(card: str) -> None:
               f"(a) shard {i}'s depth differs from depth_fn on its frame")
     check(torch.equal(gather(s_dp), ref_sbs.cpu()),
           "(a) sharded SBS differs from the unsharded batch's")
-    check(l_dp["attention"] == 2 * 48, f"(a) attention launches {l_dp}")
+    check(l_dp["attention"] == 2 * 48
+          and l_dp["residual_norm"] == 2 * RN_DEPTHPRO,
+          f"(a) attention and residual_norm launches {l_dp}")
     check(all(l_ref[k] > 0 and l_dp[k] == 2 * l_ref[k]
               for k in MESH_SBS_KERNELS), f"(a) SBS launches {l_dp} vs "
           f"{l_ref} a call")
@@ -2502,8 +2586,9 @@ def phase_parallel(card: str) -> None:
     l_tp = dict(_cuda.LAUNCHES)
     log(f"phase 7: (b) launches of one 2-frame batch {l_tp}; qkv kernel "
         f"shapes (qkv, heads): {sorted(shapes)}")
-    check(l_tp["attention"] == 96 and l_tp["attention_split"] == 0,
-          f"(b) attention launches {l_tp}")
+    # the sharded blocks keep the separate ops (Block.forward_sharded)
+    check(l_tp["attention"] == 96 and l_tp["attention_split"] == 0
+          and l_tp["residual_norm"] == 0, f"(b) attention launches {l_tp}")
     check(shapes == {((70, 577, 1536), 8), ((2, 577, 1536), 8)},
           f"(b) qkv kernel shapes {shapes}")
     m_tp, t_tp = depth_diff(d_tp, ref_depth2)
@@ -2576,7 +2661,7 @@ K4_STRIP = (120, 32)    # phase 8: the tier-1 strip's first row and rows
 K4_LAUNCHES = {"attention": 48, "blur": 1, "upsample": 2, "warp": 1,
                "pyramid": 1, "postprocess": 1, "finish": 1, "pool": 1,
                "bilateral": 0, "deconv": 0, "attention_split": 0,
-               "attention_flash": 0}
+               "attention_flash": 0, "residual_norm": RN_DEPTHPRO}
 
 
 def phase_4k_main(card: str) -> dict:
@@ -2769,7 +2854,8 @@ def phase_4k_steps(card: str, depth_fn) -> None:
         l_depth = dict(_cuda.LAUNCHES)
         depth_files = sorted((wf / "depth_maps").glob("depth_frame_*.png"))
         check(len(depth_files) == n, f"{len(depth_files)} 4K depth maps")
-        check(l_depth["attention"] == 48 * -(-n // nd),
+        check(l_depth["attention"] == 48 * -(-n // nd)
+              and l_depth["residual_norm"] == RN_DEPTHPRO * -(-n // nd),
               f"4K depth step launches {l_depth}")
         read = np.stack([read_rgb(f) for f in
                          sorted((wf / "frames").glob("frame_*.png"))])
@@ -2953,6 +3039,9 @@ def phase_fov(card: str) -> dict:
     check(l_on["attention"] == p_on == FOV_QKV
           and l_off["attention"] == p_off == 48
           and l_on["attention_split"] == 0, "(a) qkv launches")
+    check(l_on["residual_norm"] == 2 * FOV_QKV
+          and l_off["residual_norm"] == RN_DEPTHPRO,
+          "(a) residual_norm launches")
     with plain_attention():
         plain = fwd(on)
     with env_set("VSC_TPU_DEPTH_DTYPE", "float32"):
@@ -2991,8 +3080,9 @@ def phase_fov(card: str) -> dict:
         f"{l32}; split attention by route {_cuda.ROUTE_LAUNCHES}; fov_deg "
         f"kernel vs plain max diff {d32:.3g} (bound {FOV_F32_ATOL}); "
         f"inverse_depth {max_diff(out32, plain32, 'inverse_depth'):.3g}")
-    check(l32["attention_split"] == FOV_QKV and l32["attention"] == 0,
-          "(b) split attention launches")
+    check(l32["attention_split"] == FOV_QKV and l32["attention"] == 0
+          and l32["residual_norm"] == 2 * FOV_QKV,
+          "(b) split attention and residual_norm launches")
     check(d32 <= FOV_F32_ATOL, "(b) float32 fov_deg vs the plain path")
     del on32, plain, plain32
 
@@ -3017,7 +3107,8 @@ def phase_fov(card: str) -> dict:
         f"fov_deg vs unsharded bf16 max diff {d_tp:.4g} (float32 vs bf16: "
         f"{d_fp:.4g}); u8 depth mean {m_tp:.4f}, max {t_tp} codes (float32 "
         f"vs bf16: {m32:.4f}, {t32})")
-    check(l_tp["attention"] == 2 * FOV_QKV, "(c) qkv launches")
+    check(l_tp["attention"] == 2 * FOV_QKV and l_tp["residual_norm"] == 0,
+          "(c) qkv and residual_norm launches")
     check(d_tp <= d_fp and m_tp <= m32 and t_tp <= t32,
           "(c) the sharded model differs from the unsharded by more than "
           "float32 from bf16")
@@ -3137,14 +3228,16 @@ def run_bench(what: str, env: dict) -> tuple[dict, dict]:
 
 def check_bench_launches(launches: dict, iters: int, full: bool) -> None:
     """Every default-path SBS kernel launched each timed iteration, the
-    qkv attention 48 times an iteration (24 blocks x 2 ViTs) with
-    DepthPro and not with the stub, and no opt-in route's kernel."""
+    qkv attention 48 times an iteration (24 blocks x 2 ViTs) and the
+    residual_norm kernel 96 times with DepthPro and neither with the stub,
+    and no opt-in route's kernel."""
     for name, n in launches.items():
         if name in SBS_STEP_KERNELS:
             check(n > 0 and n % iters == 0, f"bench {name} launches {n}")
-        elif name == "attention":
-            check(n == (48 * iters if full else 0),
-                  f"bench attention launches {n}")
+        elif name in ("attention", "residual_norm"):
+            each = 48 if name == "attention" else RN_DEPTHPRO
+            check(n == (each * iters if full else 0),
+                  f"bench {name} launches {n}")
         else:
             check(n == 0, f"bench {name} launches {n} off its route")
 
@@ -3277,6 +3370,8 @@ def phase_dav2(card: str) -> dict:
           and launches["attention_split"] == 0
           and routes["split"] == routes["split_two_pass"] == 0,
           f"Depth Anything V2 attention launches {launches} {routes}")
+    check(launches["residual_norm"] == RN_DAV2,
+          f"Depth Anything V2 residual_norm launches {launches}")
     check(all(launches[k] > 0 for k in SBS_STEP_KERNELS),
           f"Depth Anything V2 SBS launches {launches}")
     check(tuple(out.shape) == (B, 1080, 3840, 3) and out.dtype == torch.uint8

@@ -304,8 +304,11 @@ def test_chip_smoke_checks_the_bench_line():
     launches = {k: 0 for k in _cuda.LAUNCHES}
     launches.update({k: 8 for k in smoke.SBS_STEP_KERNELS}, upsample=16)
     smoke.check_bench_launches(launches, 8, full=False)
-    smoke.check_bench_launches({**launches, "attention": 384}, 8, full=True)
+    depth = {"attention": 384, "residual_norm": 768}
+    smoke.check_bench_launches({**launches, **depth}, 8, full=True)
     for bad_counts, full in (({**launches, "attention": 384}, False),
+                             ({**launches, "residual_norm": 768}, False),
+                             ({**launches, "attention": 384}, True),
                              (launches, True),
                              ({**launches, "pyramid": 0}, False),
                              ({**launches, "finish": 12}, False),

@@ -1556,3 +1556,163 @@ def test_dropped_gather_results_reuse_pinned_blocks(dev):
     for _ in range(20):
         gather(x)
     assert stats()["num_host_alloc"] == before
+
+
+# ---- the ViT's residual + LayerScale + LayerNorm in one pass
+# (csrc/residual_norm.cu against ops/residual_norm_cuda.residual_norm_plain)
+
+def _rn_operands(shape, dtype, seed, dev, scale=3.0, offset=0.5):
+    g = torch.Generator(dev).manual_seed(seed)
+    D = shape[-1]
+    x = scale * torch.randn(shape, generator=g, device=dev) + offset
+    y = torch.randn(shape, generator=g, device=dev)
+    gamma = torch.rand(D, generator=g, device=dev) + 0.25
+    weight = 1.0 + 0.2 * torch.randn(D, generator=g, device=dev)
+    bias = 0.1 * torch.randn(D, generator=g, device=dev)
+    return [t.to(dtype) for t in (x, y, gamma, weight, bias)]
+
+
+def _rn_check(ops, dtype):
+    """The kernel against its plain version on the card: x_new bit for
+    bit (the same two IEEE operations and one rounding); h within one step
+    of bf16's grid at its value (the mean and rstd in another order, one
+    rounding each side; 1e-6 for the values near 0, where the step is
+    finer than float32's differences), or 1e-5 in float32."""
+    from vsc_tpu_torch.ops.residual_norm_cuda import (residual_norm,
+                                                      residual_norm_plain)
+    x0 = ops[0].clone()
+    before = _cuda.LAUNCHES["residual_norm"]
+    x_new, h = residual_norm(*ops, 1e-6)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["residual_norm"] == before + 1
+    assert torch.equal(ops[0], x0)
+    want_x, want_h = residual_norm_plain(*ops, 1e-6)
+    assert x_new.dtype == h.dtype == dtype and h.shape == ops[0].shape
+    assert torch.equal(x_new, want_x)
+    d = (h.float() - want_h.float()).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-5
+        return
+    top = torch.maximum(h.float().abs(), want_h.float().abs()).clamp_min(
+        torch.finfo(torch.bfloat16).tiny)
+    step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    assert bool((d <= step + 1e-6).all()), float((d - step).max())
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((280, 577, 1024), torch.bfloat16),     # DepthPro's patch pass, batch 8
+    ((8, 577, 1024), torch.bfloat16),       # its image pass
+    ((8, 2443, 1024), torch.bfloat16),      # Depth Anything V2 at 1080p
+    ((16, 577, 1024), torch.float32),       # VSC_TPU_DEPTH_DTYPE=float32
+    ((3, 37, 32), torch.bfloat16),          # 111 rows: a part block
+    ((3, 37, 32), torch.float32)], ids=str)
+def test_residual_norm_kernel_matches_plain(dev, shape, dtype):
+    _rn_check(_rn_operands(shape, dtype, 101, dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 24, 256, 512, 1000, 2048, 4096])
+def test_residual_norm_kernel_every_width(dev, dtype, D):
+    # every instance of the kernel (vectors a lane 1 to 32), rows past a
+    # block's 8 and widths that leave lanes idle
+    _rn_check(_rn_operands((13, D), dtype, 102 + D, dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_norm_kernel_large_stream(dev, dtype):
+    # a stream far from zero mean with wide rows, as ViT-L's residual
+    # stream grows: the variance of the deviations stays exact enough
+    _rn_check(_rn_operands((4, 97, 1024), dtype, 103, dev, scale=40.0,
+                           offset=25.0), dtype)
+
+
+@pytest.mark.parametrize("case", ["strided", "misaligned", "D 12", "D 4104",
+                                  "float16", "mixed dtypes", "cpu gamma"])
+def test_residual_norm_kernel_refuses(dev, case):
+    from vsc_tpu_torch.ops.residual_norm_cuda import residual_norm
+    shape = {"D 12": (2, 5, 12), "D 4104": (1, 2, 4104)}.get(case,
+                                                             (2, 5, 64))
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    ops = _rn_operands(shape, dtype, 104, dev)
+    if case == "strided":
+        ops[0] = torch.cat([ops[0], ops[0]], dim=-1)[..., ::2]
+    elif case == "misaligned":
+        buf = torch.empty(ops[0].numel() + 1, dtype=dtype, device=dev)
+        ops[0] = buf[1:].view(shape)
+        assert ops[0].is_contiguous() and ops[0].data_ptr() % 16
+    elif case == "mixed dtypes":
+        ops[2] = ops[2].float()
+    elif case == "cpu gamma":
+        ops[2] = ops[2].cpu()
+    before = _cuda.LAUNCHES["residual_norm"]
+    with pytest.raises(ValueError, match="residual_norm"):
+        residual_norm(*ops, 1e-6)
+    assert _cuda.LAUNCHES["residual_norm"] == before
+
+
+@pytest.mark.parametrize("model", ["depthpro", "dav2"])
+def test_residual_norm_launches_a_batch(dev, model):
+    # 2 launches a block of each ViT pass at ViT-L's depth of 24: 96 a
+    # DepthPro batch (patch and image encoders, the FOV encoder off), 48 a
+    # Depth Anything V2 batch
+    import dataclasses
+    from vsc_tpu_torch.models import DepthPro, DepthProConfig
+    from vsc_tpu_torch.models.depth_anything import (DepthAnythingV2,
+                                                     DepthAnythingV2Config)
+    if model == "depthpro":
+        tiny = DepthProConfig.tiny()
+        cfg = dataclasses.replace(
+            tiny, encoder=dataclasses.replace(tiny.encoder, depth=24),
+            hook_block_ids=(5, 11), use_fov_head=False,
+            use_fov_encoder=False)
+        m, x, want = DepthPro(cfg), _rand((2, 64, 64, 3), 105, dev), 96
+    else:
+        tiny = DepthAnythingV2Config.tiny()
+        cfg = dataclasses.replace(
+            tiny, encoder=dataclasses.replace(tiny.encoder, depth=24),
+            hook_block_ids=(5, 11, 17, 23))
+        m, x, want = DepthAnythingV2(cfg), _rand((2, 12, 16, 3), 105, dev), 48
+    m = m.eval().to(dev).to(torch.bfloat16)
+    _cuda.reset_launches()
+    with torch.no_grad():
+        m(x)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["residual_norm"] == want, _cuda.LAUNCHES
+
+
+def test_vit_fused_steps_on_the_card(dev, monkeypatch):
+    # a small bf16 ViT on the card (head dim 64: the qkv kernel): the
+    # fused steps as close to the float32 model as the separate ops
+    # (Block.forward and the final norm, the guard refusing the fused
+    # step) are, give or take one bf16 step of the largest value; hooks too
+    from vsc_tpu_torch.models import ViT, ViTConfig, init_flax_like
+    from vsc_tpu_torch.models import vit as vit_mod
+    cfg = ViTConfig(img_size=32, patch_size=4, embed_dim=128, depth=4,
+                    num_heads=2)
+    g = torch.Generator(dev).manual_seed(106)
+    with dev:
+        vit = ViT(cfg, (1, 3)).eval()
+    init_flax_like(vit, g)
+    with torch.no_grad():
+        for n, p in vit.named_parameters():
+            if n.endswith("gamma"):
+                p.uniform_(0.5, 1.5, generator=g)
+    images = _rand((6, 3, 32, 32), 107, dev) * 2 - 1
+    with torch.no_grad():
+        ref, ref_hooks = vit(images, hook_batch=4)      # float32, fused
+        b16 = vit.to(torch.bfloat16)
+        _cuda.reset_launches()
+        got, got_hooks = b16(images.bfloat16(), hook_batch=4)
+        assert _cuda.LAUNCHES["residual_norm"] == 2 * cfg.depth
+        monkeypatch.setattr(vit_mod, "residual_norm_supported",
+                            lambda x: False)
+        sep, sep_hooks = b16(images.bfloat16(), hook_batch=4)
+    assert _cuda.LAUNCHES["residual_norm"] == 2 * cfg.depth
+    for a, b, r in [(got, sep, ref)] + [(got_hooks[i], sep_hooks[i],
+                                         ref_hooks[i]) for i in (1, 3)]:
+        assert a.shape == b.shape == r.shape
+        top = float(r.abs().max())
+        ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(top))
+        fused = float((a.float() - r).abs().max())
+        separate = float((b.float() - r).abs().max())
+        assert fused <= separate + ulp, (fused, separate, ulp)

@@ -24,6 +24,15 @@ float32 (``VSC_TPU_DEPTH_DTYPE=float32``) and other head dims, as
 are ``nn.Linear`` (the JAX package leaves them to XLA). The
 folded-LayerNorm variant of the JAX module is not ported.
 
+The unsharded blocks chain through ``ops/residual_norm_cuda.residual_norm``
+(``ViT.forward``): each residual add and LayerScale is one pass with the
+LayerNorm that follows it (``norm2`` inside a block, the next block's
+``norm1`` or the final ``norm`` after it), which writes the new stream and
+its normalized copy; ``x + gamma * y`` is rounded once to the dtype, where
+the separate ops round the product and the sum each (the same bits in
+float32). ``Block.forward`` keeps the one-block form of separate ops; the
+sharded path below keeps them too.
+
 Tensor and sequence parallelism (``vsc_tpu/models/vit.py:141-233``):
 ``parallel/sharding.shard_params`` gives every block of a replica its
 model-axis ranks (``Block.ranks``), each a narrower ``Block`` on its own
@@ -50,6 +59,8 @@ import torch
 from torch import nn
 
 from vsc_tpu_torch.ops import attention_cuda
+from vsc_tpu_torch.ops.residual_norm_cuda import (residual_norm,
+                                                  residual_norm_supported)
 from vsc_tpu_torch.parallel.collectives import (all_gather, all_reduce,
                                                 broadcast, gather_tokens,
                                                 reduce_scatter, split_tokens)
@@ -192,6 +203,12 @@ class Block(nn.Module):
         return x + ls((total + out.bias).to(x.dtype))
 
 
+def _residual_norm(x, y, ls: LayerScale, norm: nn.LayerNorm):
+    """``x + ls(y)`` and ``norm`` of it, in one pass
+    (``ops/residual_norm_cuda``)."""
+    return residual_norm(x, y, ls.gamma, norm.weight, norm.bias, norm.eps)
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -269,11 +286,24 @@ class ViT(nn.Module):
         if len(self.blocks) and self.blocks[0].ranks is not None:
             return self._forward_sharded(x, hook_batch)
         hooks = {}
-        for i, blk in enumerate(self.blocks):
-            x = blk(x)
+        if not residual_norm_supported(x):
+            for i, blk in enumerate(self.blocks):
+                x = blk(x)
+                if i in self.hook_block_ids:
+                    hooks[i] = x if hook_batch is None else x[:hook_batch]
+            return self.norm(x), hooks
+        # each residual + LayerScale with the LayerNorm that follows it:
+        # norm2 inside a block, the next block's norm1 (or the final norm)
+        # after it; h is the normalized stream the next sublayer reads
+        blocks = self.blocks
+        h = blocks[0].norm1(x) if len(blocks) else self.norm(x)
+        for i, blk in enumerate(blocks):
+            x, h = _residual_norm(x, blk.attn(h), blk.ls1, blk.norm2)
+            nxt = blocks[i + 1].norm1 if i + 1 < len(blocks) else self.norm
+            x, h = _residual_norm(x, blk.mlp(h), blk.ls2, nxt)
             if i in self.hook_block_ids:
                 hooks[i] = x if hook_batch is None else x[:hook_batch]
-        return self.norm(x), hooks
+        return h, hooks
 
     def _forward_sharded(self, x, hook_batch: int | None):
         """The blocks over their model-axis ranks: the stream copied to

@@ -48,7 +48,7 @@ NVCC_TIMEOUT = 600.0
 LAUNCHES = {"blur": 0, "warp": 0, "postprocess": 0, "attention": 0,
             "upsample": 0, "pool": 0, "pyramid": 0, "finish": 0,
             "bilateral": 0, "deconv": 0, "attention_split": 0,
-            "attention_flash": 0}
+            "attention_flash": 0, "residual_norm": 0}
 ROUTE_LAUNCHES = {"split": 0, "split_two_pass": 0, "flash": 0,
                   "pool_edge": 0}
 # group -> the fields of its counters, in the kernel's order. A group's
@@ -108,6 +108,8 @@ _SIGNATURES = {
     # q/k/v in elements, scale, bf16, two-pass route, stream
     "vsc_split_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
                             _I, _I, _P],
+    # x, y, gamma, weight, bias, x_out, h_out, rows, D, eps, bf16, stream
+    "vsc_residual_norm": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _P],
 }
 
 
